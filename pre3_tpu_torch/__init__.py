@@ -1,0 +1,29 @@
+"""pre3_tpu_torch — the PyTorch/CUDA port of pre3_tpu for one NVIDIA H100.
+
+Same subpackages and module names as ``pre3_tpu`` (the JAX reference), so
+every module's counterpart is found by path. Plain tensor code is PyTorch;
+each Pallas kernel of the reference that the port has reached is a CUDA C++
+kernel under ``csrc/`` with a plain-PyTorch twin beside its wrapper. The
+package imports ``torch`` and never ``jax``.
+
+Package layout (ported so far):
+  data/      SR4000 Frame + synthetic scene renderer (numpy copies)
+  eval/      ATE/RPE metrics (numpy copy)
+  geometry/  quaternion, SE(3)
+  frontend/  FAST detector, patch descriptors, depth lift, pipeline
+  ops/       3×3 SVD, descriptor matching, RANSAC scoring (CUDA kernel)
+  vo/        rigid fits, batched RANSAC, dead-reckoning VO
+  utils/     numpy ↔ torch interop with the reference's NamedTuples
+"""
+
+import torch as _torch
+
+# Estimation accuracy first, as in the reference (pre3_tpu/__init__.py:37,
+# "highest" f32 matmuls): the engine's small-matrix math (Kabsch, SVD,
+# pose chaining) must not run in TF32, which keeps ~3 decimal digits.
+# cuBLAS f32 matmuls already default to full f32, but cuDNN convolutions
+# default to TF32; both flags are set so neither path depends on defaults.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

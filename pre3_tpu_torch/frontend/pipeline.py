@@ -1,0 +1,53 @@
+"""Frontend pipeline: detect → describe → depth-lift, batched over frames.
+
+Port of ``pre3_tpu/frontend/pipeline.py::extract_features``. The reference
+extracts one frame per call and is vmapped by its callers; here the frame
+axis is explicit, so a whole sequence's frontend is one batch of launches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pre3_tpu_torch.frontend.depth_lift import lift
+from pre3_tpu_torch.frontend.fast import detect
+from pre3_tpu_torch.frontend.patches import extract_patch_descriptors
+
+
+class Features(NamedTuple):
+    """Fixed-capacity feature set (masked); leading frame axis optional."""
+
+    uv: torch.Tensor  # [..., K, 2]
+    desc: torch.Tensor  # [..., K, D]
+    xyz: torch.Tensor  # [..., K, 3] camera-frame 3D (0 where invalid)
+    valid: torch.Tensor  # [..., K] bool
+    score: torch.Tensor  # [..., K] detector response
+
+
+def extract_features(
+    intensity: torch.Tensor,  # [F, H, W] float
+    xyz: torch.Tensor,  # [F, H, W, 3], NaNs allowed
+    confidence: torch.Tensor,  # [F, H, W]
+    threshold: float = 0.06,
+    max_features: int = 256,
+    patch: int = 11,
+) -> Features:
+    """FAST + patch descriptors + depth lift for F frames at once; every
+    field of the result has the leading frame axis F."""
+    if intensity.dim() != 3 or xyz.shape != (*intensity.shape, 3) or (
+        confidence.shape != intensity.shape
+    ):
+        raise ValueError(
+            "extract_features takes intensity [F, H, W], xyz [F, H, W, 3] "
+            f"and confidence [F, H, W]; got {tuple(intensity.shape)}, "
+            f"{tuple(xyz.shape)}, {tuple(confidence.shape)}"
+        )
+    corners = detect(intensity, threshold=threshold, max_corners=max_features)
+    desc = extract_patch_descriptors(intensity, corners.uv, patch=patch)
+    lifted = lift(corners.uv, corners.valid, torch.nan_to_num(xyz), confidence)
+    return Features(
+        uv=corners.uv, desc=desc, xyz=lifted.xyz, valid=lifted.valid,
+        score=corners.score,
+    )

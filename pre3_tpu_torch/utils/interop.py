@@ -1,0 +1,55 @@
+"""State carried across: the reference's NamedTuples ↔ the port's.
+
+The engine has no learned weights; its state is features, matches, random
+draws, poses and trajectories. These helpers turn the JAX package's
+NamedTuples, given as numpy arrays (``Features``, ``Matches``, ``Pose``,
+``Trajectory``, ``VoStep``, ``RigidFit``, ``RansacResult``), into the
+port's NamedTuples of tensors on a given device, and back into numpy.
+Matching is by type name and fields, so this module imports nothing of
+the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from pre3_tpu_torch.frontend.pipeline import Features
+from pre3_tpu_torch.geometry.se3 import Pose
+from pre3_tpu_torch.ops.matching import Matches
+from pre3_tpu_torch.vo.dead_reckoning import Trajectory, VoStep
+from pre3_tpu_torch.vo.ransac import RansacResult
+from pre3_tpu_torch.vo.rigid import RigidFit
+
+_PORT_TYPES: dict[tuple[str, tuple[str, ...]], type] = {
+    (cls.__name__, cls._fields): cls
+    for cls in (Features, Matches, Pose, Trajectory, VoStep, RansacResult,
+                RigidFit)
+}
+
+
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def to_torch(value: Any, device: torch.device | str = "cpu") -> Any:
+    """numpy arrays (or NamedTuples of them) → tensors on ``device``.
+
+    A NamedTuple becomes the port's type of the same name and fields; any
+    other NamedTuple keeps its type."""
+    if _is_namedtuple(value):
+        cls = _PORT_TYPES.get((type(value).__name__, value._fields),
+                              type(value))
+        return cls(*(to_torch(v, device) for v in value))
+    return torch.tensor(np.asarray(value), device=device)  # a copy
+
+
+def to_numpy(value: Any) -> Any:
+    """Tensors (or NamedTuples of them) → numpy arrays, same structure.
+    The result feeds the reference's NamedTuple: ``JaxType(*to_numpy(x))``."""
+    if _is_namedtuple(value):
+        return type(value)(*(to_numpy(v) for v in value))
+    return value.detach().cpu().numpy()
+
