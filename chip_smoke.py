@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pre3_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's VO dead-reckoning slice (FAST + patch frontend →
-RANSAC VO) through its entry points, ``extract_features`` and
-``run_sequence``, and checks each CUDA kernel of that path against its
-plain PyTorch version. Run it from the root of a checkout:
+Drives the port's two slices through their entry points and checks each
+CUDA kernel of those paths against its plain PyTorch version:
+
+  * VO dead reckoning: ``extract_features`` → ``run_sequence`` (K2 match
+    + K1-scored RANSAC per frame pair);
+  * EKF-SLAM: ``extract_features`` → ``run_slam`` (per frame: VO with
+    K2 + K1 and its IFT covariance, prediction, K2 map matching, 1-point
+    RANSAC, Kalman updates, map management).
+
+Run it from the root of a checkout:
 
     python3 chip_smoke.py
 
 It builds the kernels from ``pre3_tpu_torch/csrc`` on first use (needs
-``nvcc``), needs one CUDA device, and imports nothing of JAX. Phases:
+``nvcc``; one ``nvcc`` per source, started together), needs one CUDA
+device, and imports nothing of JAX. Phases:
 
-  1. device    — the card's name and power limit (nvidia-smi);
-  2. build     — compile or load kernel K1 (RANSAC scorer);
-  3. kernel    — K1 vs its plain version on the card, timed;
-  4. parity    — a 16-frame slice on the card vs the port's CPU path;
-  5. slice     — the 256-frame corridor at the bench operating point
-                 (FAST threshold 0.05, 256 features, 1024 hypotheses):
-                 frames/s, K1 launches per run, pairs ok, ATE.
+  1. device     — the card's name and power limit (nvidia-smi);
+  2. build      — compile or load K1 (RANSAC scorer) and K2 (streaming
+                  matcher), with ptxas registers/spills;
+  3. kernel     — K1 and K2 vs their plain versions on the card, timed;
+  4. parity     — a 16-frame VO slice on the card vs the port's CPU path;
+  5. slice      — the 256-frame corridor VO slice at the bench operating
+                  point: frames/s, K1 and K2 launches per run, ATE;
+  6. ekf-parity — a 16-frame run_slam (K=64, plane fit on) on the card vs
+                  the port's CPU path, same injected draws;
+  7. ekf-slice  — the 256-frame corridor run_slam at the bench headline's
+                  operating point (K=256, D=1549): frames/s, K1 and K2
+                  launches per run, n_ic/n_li/n_active, ATE.
 
 The line before the last is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -31,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,14 +58,36 @@ NOISE = 0.004
 THRESHOLD = 0.05
 MAX_FEATURES = 256
 BATCH = 1024
-TIMED_RUNS = 7
-# ATE band on the 256-frame corridor: the JAX reference on the CPU over
-# keys 0..6 spans 0.8459–0.8500 m (PERF.md); the band is 0.848 ± 0.02 m.
+TIMED_RUNS = 3
+# ATE band of the VO corridor: the JAX reference on the CPU over keys
+# 0..6 spans 0.8459–0.8500 m (PERF.md); the band is 0.848 ± 0.02 m.
 ATE_CENTER, ATE_HALF_WIDTH = 0.848, 0.02
 # Phase 4 (card vs CPU, same draws): pose agreement bound. Both run the
 # same f32 arithmetic; only reduction order differs (~1e-6 per pair), and
 # 15 chained pairs stay far inside 1e-3.
 PARITY_TOL = 1e-3
+
+# Operating point of the EKF slice: bench.py's headline (N_LANDMARKS=256,
+# SlamConfig(min_measured=50, max_update_slots=96), vo_batch 512) on the
+# same corridor, with FAST + patch features and ratio 1.3
+# (tests/test_slam_sequence.py) in place of SIFT.
+EKF_LANDMARKS = 256
+EKF_CFG = dict(min_measured=50, max_update_slots=96, match_ratio=1.3)
+# ATE band of the EKF slice: the JAX reference on the CPU over keys 0..6,
+# same sequence, features and config, spans 0.1377–0.1688 m (PERF.md §2);
+# the band is 0.153 ± 0.05 m, ~1.6× that spread on each side. A fault
+# (a wrong branch, a lost update) moves it far more: dead-reckoned VO
+# alone is 0.848 m.
+EKF_ATE_CENTER, EKF_ATE_HALF_WIDTH = 0.153, 0.05
+# Phase 6: card vs CPU poses over 15 steps (a Kalman-filtered chain of
+# the VO's ~1e-6 per-pair differences), and how far the per-step counts
+# may differ: a near-tie can flip one match in one step.
+EKF_PARITY_TOL = 1e-3
+EKF_PARITY_STEPS = 2
+
+# K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
+# is below this relative gap may legitimately resolve either way.
+K2_MARGIN = 1e-5
 
 
 def phase(name: str, msg: str) -> None:
@@ -80,6 +115,21 @@ def scorer_problem(b: int, n: int, seed: int, all_invalid: bool = False):
             for a in (r, t, p1, p2)] + [
         torch.as_tensor(valid, device="cuda"),
         torch.tensor(thr, dtype=torch.float32, device="cuda")]
+
+
+def matcher_problem(n1: int, n2: int, d: int, seed: int):
+    """Unit descriptors; 60% of d1's rows are noisy copies of d2 rows, so
+    the ratio test both accepts and rejects; ~10% invalid on each side."""
+    rng = np.random.default_rng(seed)
+    d2 = rng.normal(size=(n2, d)).astype(np.float32)
+    d1 = rng.normal(size=(n1, d)).astype(np.float32)
+    k = int(0.6 * min(n1, n2))
+    d1[:k] = d2[rng.permutation(n2)[:k]] + rng.normal(scale=0.3, size=(k, d))
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    v1 = rng.uniform(size=n1) > 0.1
+    v2 = rng.uniform(size=n2) > 0.1
+    return [torch.as_tensor(a, device="cuda") for a in (d1, d2, v1, v2)]
 
 
 def time_ms(fn, warmup: int = 10, reps: int = 60) -> float:
@@ -110,58 +160,60 @@ def render(n_frames: int, n_points: int, x_range):
     return (intensity, xyz, conf), gt
 
 
-def run_slice(images, gumbel=None, generator=None):
+def features(images):
     from pre3_tpu_torch.frontend.pipeline import extract_features
+
+    return extract_features(*images, threshold=THRESHOLD,
+                            max_features=MAX_FEATURES)
+
+
+def run_slice(images, gumbel=None, generator=None):
     from pre3_tpu_torch.vo.dead_reckoning import run_sequence
 
-    feats = extract_features(*images, threshold=THRESHOLD,
-                             max_features=MAX_FEATURES)
-    return run_sequence(feats, gumbel=gumbel, generator=generator,
+    return run_sequence(features(images), gumbel=gumbel, generator=generator,
                         batch=BATCH)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
-                         "is False); the port's smoke run needs one GPU")
-    if not (ROOT / "pre3_tpu_torch").is_dir():
-        raise SystemExit(f"chip_smoke: no pre3_tpu_torch package beside "
-                         f"{__file__}; run it from the root of a checkout")
-    sys.path.insert(0, str(ROOT))
-    from pre3_tpu_torch.eval.trajectory import ate_rmse
-    from pre3_tpu_torch.ops.matching import match_descriptors_auto
+def run_ekf(images, n_landmarks, cfg, draws=None, generator=None,
+            xyz_imgs=None):
+    from pre3_tpu_torch.ekf.slam import run_slam
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+
+    return run_slam(sr4000_camera(), features(images), cfg,
+                    n_landmarks=n_landmarks, draws=draws,
+                    generator=generator, xyz_imgs=xyz_imgs)
+
+
+def build_kernels(names):
+    """One nvcc per source, all started together; echo ptxas's lines."""
+    from pre3_tpu_torch.utils.cuda_build import build_library, library_path
+
+    t0 = time.perf_counter()
+    cached = {n: library_path(n).exists() for n in names}
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(build_library, names)))
+    phase("build", f"{', '.join(names)} ready in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    for name, path in paths.items():
+        phase("build", f"{name} {'loaded' if cached[name] else 'built'}: "
+              f"{path.name}")
+        log = path.with_suffix(".so.log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    phase("build", f"{name}: {line.strip()}")
+
+
+def check_k1():
+    """K1 vs its plain version at the VO shapes; timings."""
     from pre3_tpu_torch.ops.ransac_score import (
         residuals_torch, score_hypotheses, score_hypotheses_torch,
     )
-    from pre3_tpu_torch.utils.cuda_build import build_library, library_path
 
-    # ---- 1. device ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(smi, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    phase("device", f"{kind}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; count {torch.cuda.device_count()}")
-
-    # ---- 2. build ----
-    t0 = time.perf_counter()
-    cached = library_path("ransac_score").exists()
-    lib_path = build_library("ransac_score")
-    phase("build", f"ransac_score {'loaded' if cached else 'built'} in "
-          f"{time.perf_counter() - t0:.2f} s: {lib_path.name}")
-    log = lib_path.with_suffix(".so.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                phase("build", line.strip())
-
-    # ---- 3. K1 vs plain on the card ----
     cases = [  # (name, B, N, seed, all_invalid)
         ("main-1024x256", 1024, 256, 0, False),
         ("slam-512x288", 512, 288, 1, False),
+        ("ekf-512x256", 512, 256, 6, False),
         ("ragged-1000x250", 1000, 250, 2, False),
         ("n1-64x1", 64, 1, 3, False),
         ("all-invalid-128x256", 128, 256, 4, True),
@@ -184,37 +236,125 @@ def main() -> None:
         rel = ((err_k - err_p).abs() / err_p.abs().clamp(min=1e-30))[clean]
         abs_err = float((err_k - err_p).abs()[clean].max())
         max_abs_err = max(max_abs_err, abs_err)
-        phase("kernel", f"{name}: support mismatches outside band {outside}, "
-              f"exact {int((diff == 0).sum())}/{b}; err max abs "
+        phase("kernel", f"K1 {name}: support mismatches outside band "
+              f"{outside}, exact {int((diff == 0).sum())}/{b}; err max abs "
               f"{abs_err:.3e}, max rel "
               f"{float(rel.max()) if rel.numel() else 0.0:.3e}")
         if outside:
-            raise AssertionError(f"{name}: support differs outside the band")
+            raise AssertionError(f"K1 {name}: support differs outside the band")
         torch.testing.assert_close(err_k[clean], err_p[clean], rtol=1e-5,
                                    atol=0.0)
         if all_invalid and int(sup_k.sum()) != 0:
-            raise AssertionError(f"{name}: all-invalid case has support")
+            raise AssertionError(f"K1 {name}: all-invalid case has support")
         if not all_invalid and n > 1 and int(torch.argmax(sup_k)) != 0:
-            raise AssertionError(f"{name}: true motion (hyp 0) did not win")
-    # K2 (the streaming matcher) is not ported: above its cutover a CUDA
-    # input must raise, not run the plain path
-    big = torch.zeros(2048, 121, device="cuda")
-    try:
-        match_descriptors_auto(big, big)
-    except NotImplementedError as e:
-        phase("kernel", f"K2 cutover raises as it should: {e}")
-    else:
-        raise AssertionError("match_descriptors_auto ran above the K2 cutover")
+            raise AssertionError(f"K1 {name}: true motion (hyp 0) did not win")
     timings = {}
-    for name, b, n in (("1024x256", 1024, 256), ("512x288", 512, 288)):
+    for name, b, n in (("1024x256", 1024, 256), ("512x288", 512, 288),
+                       ("512x256", 512, 256)):
         args = scorer_problem(b, n, 10)
         ms = time_ms(lambda: score_hypotheses(*args))
         plain_ms = time_ms(lambda: score_hypotheses_torch(*args))
         timings[name] = (ms, plain_ms)
-        phase("kernel", f"time B×N={name}: K1 {ms:.4f} ms, plain "
+        phase("kernel", f"K1 time B×N={name}: K1 {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (median of 60, CUDA events)")
+    return max_abs_err, timings
 
-    # ---- 4. a short slice: card vs the port's CPU path, same draws ----
+
+def check_k2():
+    """K2 vs the plain matcher on the main path's shapes and the corner
+    cases; timings at 256², 4096² and 8192²."""
+    from pre3_tpu_torch.ops.matching import (
+        BIG, match_descriptors, match_descriptors_k2,
+    )
+
+    cases = [  # (name, N1, N2, D, seed)
+        ("step-256x256-d121", 256, 256, 121, 0),
+        ("sift-256x288-d128", 256, 288, 128, 1),
+        ("ragged-1000x777-d121", 1000, 777, 121, 2),
+        ("one-1x1-d121", 1, 1, 121, 3),
+        ("map-4096x4096-d128", 4096, 4096, 128, 4),
+        ("map-8192x8192-d128", 8192, 8192, 128, 5),
+    ]
+    max_abs_err = 0.0
+    for name, n1, n2, d, seed in cases:
+        d1, d2, v1, v2 = matcher_problem(n1, n2, d, seed)
+        k = match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)
+        p = match_descriptors(d1, d2, v1, v2, ratio=1.3)
+        torch.cuda.synchronize()
+        scale = float(torch.maximum((d1 * d1).sum(-1).max(),
+                                    (d2 * d2).sum(-1).max()))
+        margin = (p.dist2_second - p.dist2) / p.dist2.clamp(min=1e-30)
+        clear = margin > K2_MARGIN
+        ratio_gap = (p.dist2 * 1.3 - p.dist2_second).abs() / (
+            p.dist2_second.clamp(min=1e-30))
+        sel = clear & (ratio_gap > K2_MARGIN)
+        idx_bad = int((k.index != p.index)[clear].sum())
+        acc_bad = int((k.accepted != p.accepted)[sel].sum())
+        # distances compared where finite; BIG (no candidate) must match
+        # exactly
+        big_bad = int(((k.dist2 >= BIG) != (p.dist2 >= BIG)).sum() + (
+            (k.dist2_second >= BIG) != (p.dist2_second >= BIG)).sum())
+        err = max(float(torch.where(q < BIG, (a - q).abs(), 0.0).max())
+                  for a, q in ((k.dist2, p.dist2),
+                               (k.dist2_second, p.dist2_second)))
+        max_abs_err = max(max_abs_err, err)
+        phase("kernel", f"K2 {name}: index mismatches on clear rows "
+              f"{idx_bad}/{int(clear.sum())}, accepted mismatches "
+              f"{acc_bad}/{int(sel.sum())}, dist2 max abs err {err:.3e} "
+              f"(tol {1e-5 * scale:.1e}), accepted {int(k.accepted.sum())}")
+        if idx_bad or acc_bad or big_bad or err > 1e-5 * scale:
+            raise AssertionError(f"K2 {name}: disagrees with the plain matcher")
+        if n2 > 1 and not bool(k.accepted.any()):
+            raise AssertionError(f"K2 {name}: nothing accepted")
+
+    # duplicate-column ties (inside a tile and across tiles): exact
+    d1, d2, _, _ = matcher_problem(3, 300, 121, 6)
+    d2[41] = d2[40]
+    d2[200] = d2[7]
+    d1 = d2[[7, 40, 250]].clone()
+    k = match_descriptors_k2(d1, d2, ratio=1.5)
+    p = match_descriptors(d1, d2, ratio=1.5)
+    for m in (k, p):
+        if m.index.tolist() != [7, 40, 250] or m.accepted.tolist() != [
+            False, False, True
+        ] or not torch.equal(m.dist2[:2], m.dist2_second[:2]):
+            raise AssertionError(f"K2 duplicate tie: {m}")
+    phase("kernel", "K2 duplicate-column tie: index [7, 40, 250], second == "
+          "best on the tied rows, rejected — equal to the plain version")
+    # all-invalid d2: exact
+    d1, d2, v1, _ = matcher_problem(50, 60, 121, 7)
+    none2 = torch.zeros(60, dtype=torch.bool, device="cuda")
+    k = match_descriptors_k2(d1, d2, v1, none2, ratio=1.3)
+    p = match_descriptors(d1, d2, v1, none2, ratio=1.3)
+    big = torch.tensor(BIG, dtype=torch.float32)
+    for m in (k, p):
+        if not (bool((m.index == 0).all()) and bool(
+            (m.dist2.cpu() == big).all()) and bool(
+                (m.dist2_second.cpu() == big).all()) and not bool(
+                    m.accepted.any())):
+            raise AssertionError(f"K2 all-invalid: {m}")
+    phase("kernel", "K2 all-invalid d2: best = second = 1e30, index 0, "
+          "nothing accepted — equal to the plain version")
+
+    timings = {}
+    for name, n, d in (("256x256-d121", 256, 121), ("4096x4096-d128", 4096, 128),
+                       ("8192x8192-d128", 8192, 128)):
+        d1, d2, v1, v2 = matcher_problem(n, n, d, 11)
+        ms = time_ms(lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3))
+        plain_ms = time_ms(lambda: match_descriptors(d1, d2, v1, v2,
+                                                     ratio=1.3))
+        timings[name] = (ms, plain_ms)
+        phase("kernel", f"K2 time {name}: K2 {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (median of 60, CUDA events)")
+    return max_abs_err, timings
+
+
+def vo_phases():
+    """Phases 4 and 5: the VO slice, card vs CPU, then the corridor."""
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.ops.matching import match_descriptors_k2
+    from pre3_tpu_torch.ops.ransac_score import score_hypotheses
+
     n_short = 16
     images, _ = render(n_short, 300, None)
     gumbel = np.random.default_rng(7).gumbel(
@@ -227,15 +367,14 @@ def main() -> None:
     dt = float((gpu.t.cpu() - cpu.t).abs().max())
     dq = float((gpu.q.cpu() - cpu.q).abs().max())
     dn = int((gpu.n_inliers.cpu() - cpu.n_inliers).abs().max())
-    phase("parity", f"{n_short} frames: ok equal "
+    phase("parity", f"VO {n_short} frames: ok equal "
           f"{bool(torch.equal(gpu.ok.cpu(), cpu.ok))}, max |Δn_inliers| {dn}, "
           f"max |Δt| {dt:.3e} m, max |Δq| {dq:.3e} (tolerance {PARITY_TOL})")
     if not torch.equal(gpu.ok.cpu(), cpu.ok) or dn > 1 or dt > PARITY_TOL or (
         dq > PARITY_TOL
     ):
-        raise AssertionError("card and CPU slices disagree")
+        raise AssertionError("card and CPU VO slices disagree")
 
-    # ---- 5. the full slice at the bench operating point ----
     drift = 0.03 * 0.5 * N_FRAMES
     t0 = time.perf_counter()
     images, gt = render(N_FRAMES, N_POINTS, (-1.8, drift + 1.8))
@@ -243,7 +382,7 @@ def main() -> None:
     torch.cuda.synchronize()
     phase("slice", f"rendered + uploaded {N_FRAMES} frames in "
           f"{time.perf_counter() - t0:.1f} s (set-up, not timed)")
-    seconds, launches = [], 0
+    seconds = []
     for run in range(TIMED_RUNS + 1):  # run 0 warms up
         gen = torch.Generator(device="cuda").manual_seed(run)
         torch.cuda.synchronize()
@@ -251,22 +390,23 @@ def main() -> None:
         # synchronizing call (.item(), a device-to-host copy, ...) raises
         torch.cuda.set_sync_debug_mode("error" if run == 0 else "default")
         score_hypotheses.launches = 0
+        match_descriptors_k2.launches = 0
         t0 = time.perf_counter()
         traj = run_slice(im, generator=gen)
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = score_hypotheses.launches
+        k1, k2 = score_hypotheses.launches, match_descriptors_k2.launches
         ok = traj.ok.cpu()
         ate = ate_rmse(traj.t.cpu().numpy(), gt, align=False)
         phase("slice", f"run {run}{' (warm-up, no host sync)' if run == 0 else ''}: "
               f"{elapsed:.4f} s, {N_FRAMES / elapsed:.2f} frames/s, "
-              f"K1 launches {launches}, pairs ok {int(ok[1:].sum())}/"
-              f"{N_FRAMES - 1}, mean inliers "
+              f"K1 launches {k1}, K2 launches {k2}, pairs ok "
+              f"{int(ok[1:].sum())}/{N_FRAMES - 1}, mean inliers "
               f"{float(traj.n_inliers[1:].float().mean()):.1f}, ATE {ate:.4f} m")
-        if launches != N_FRAMES - 1:
-            raise AssertionError(f"K1 launched {launches} times, expected "
-                                 f"{N_FRAMES - 1}")
+        if k1 != N_FRAMES - 1 or k2 != N_FRAMES - 1:
+            raise AssertionError(f"VO slice: K1 launched {k1}, K2 {k2} times; "
+                                 f"expected {N_FRAMES - 1} each")
         if not bool(ok.all()):
             raise AssertionError("a frame pair failed")
         if abs(ate - ATE_CENTER) > ATE_HALF_WIDTH:
@@ -275,21 +415,164 @@ def main() -> None:
         if run:
             seconds.append(elapsed)
     fps = sorted(N_FRAMES / s for s in seconds)
-    phase("slice", f"frames/s median {statistics.median(fps):.2f}, min "
+    phase("slice", f"VO frames/s median {statistics.median(fps):.2f}, min "
           f"{fps[0]:.2f}, max {fps[-1]:.2f} over {len(fps)} runs "
           f"(frontend + run_sequence, host clock around synchronize)")
+    return im, gt
 
-    ms, plain_ms = timings["1024x256"]
-    print(json.dumps({"kernels": [{
-        "name": "ransac_score",
-        "route": "cuda",
-        "source": "pre3_tpu_torch/csrc/ransac_score.cu",
-        "replaces": "pre3_tpu/ops/ransac_score.py:45",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+
+def ekf_draws(n_frames: int, cfg, n_landmarks: int, seed: int):
+    """Numpy-seeded Gumbel draws for every random choice of run_slam."""
+    from pre3_tpu_torch.ekf.one_point_ransac import pool_size
+    from pre3_tpu_torch.ekf.slam import SlamDraws, StepDraws
+
+    rng = np.random.default_rng(seed)
+    g = lambda *s: rng.gumbel(size=s).astype(np.float32)
+    m = pool_size(n_landmarks, cfg.max_update_slots or None)
+    n_region = (144 - int(144 * 0.6)) * 176
+    s = n_frames - 1
+    return SlamDraws(
+        steps=StepDraws(vo=g(s, cfg.vo_batch, MAX_FEATURES),
+                        ransac=g(s, cfg.ransac_batch, m),
+                        add=g(s, MAX_FEATURES)),
+        boot_add=g(MAX_FEATURES), plane=g(512, n_region))
+
+
+def ekf_parity():
+    """Phase 6: 16-frame run_slam, K=64, card vs the port's CPU path."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig
+    from pre3_tpu_torch.utils.interop import to_torch
+
+    n_short, k = 16, 64
+    # max_update_slots 48 < K so the bounded update and pool run too
+    cfg = SlamConfig(min_measured=50, max_update_slots=48, match_ratio=1.3)
+    images, _ = render(n_short, 300, None)
+    draws = ekf_draws(n_short, cfg, k, seed=8)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        im = [torch.as_tensor(a, device=dev) for a in images]
+        outs[dev] = run_ekf(im, k, cfg, draws=to_torch(draws, dev),
+                            xyz_imgs=im[1])
+    gpu, cpu = outs["cuda"], outs["cpu"]
+    dt = float((gpu.t.cpu() - cpu.t).abs().max())
+    dq = float((gpu.q.cpu() - cpu.q).abs().max())
+    d_ic = (gpu.stats.n_ic.cpu() - cpu.stats.n_ic).abs()
+    d_li = (gpu.stats.n_li.cpu() - cpu.stats.n_li).abs()
+    steps_off = int(((d_ic > 0) | (d_li > 0)).sum())
+    phase("ekf-parity", f"{n_short} frames, K={k}: n_ic equal per step "
+          f"{bool((d_ic == 0).all())}, n_li equal per step "
+          f"{bool((d_li == 0).all())} (steps differing {steps_off}, max "
+          f"|Δn_ic| {int(d_ic.max())}, max |Δn_li| {int(d_li.max())}), "
+          f"max |Δt| {dt:.3e} m, max |Δq| {dq:.3e} (tolerance "
+          f"{EKF_PARITY_TOL}), mean n_li {float(cpu.stats.n_li.float().mean()):.1f}")
+    if dt > EKF_PARITY_TOL or dq > EKF_PARITY_TOL or (
+        steps_off > EKF_PARITY_STEPS
+    ) or int(d_ic.max()) > 1 or int(d_li.max()) > 1 or not bool(
+        torch.isfinite(gpu.t).all()
+    ):
+        raise AssertionError("card and CPU EKF runs disagree")
+
+
+def ekf_slice(im, gt):
+    """Phase 7: the 256-frame corridor EKF slice, 1 warm-up + 3 timed."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.ops.matching import match_descriptors_k2
+    from pre3_tpu_torch.ops.ransac_score import score_hypotheses
+
+    cfg = SlamConfig(**EKF_CFG)
+    seconds = []
+    for run in range(TIMED_RUNS + 1):  # run 0 warms up under sync checks
+        gen = torch.Generator(device="cuda").manual_seed(run)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if run == 0 else "default")
+        score_hypotheses.launches = 0
+        match_descriptors_k2.launches = 0
+        t0 = time.perf_counter()
+        out = run_ekf(im, EKF_LANDMARKS, cfg, generator=gen)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        k1, k2 = score_hypotheses.launches, match_descriptors_k2.launches
+        s = out.stats
+        t = out.t.cpu().numpy()
+        ate = ate_rmse(t, gt, align=False)
+        phase("ekf-slice", f"run {run}{' (warm-up, no host sync)' if run == 0 else ''}: "
+              f"{elapsed:.4f} s, {N_FRAMES / elapsed:.2f} frames/s, "
+              f"K1 launches {k1}, K2 launches {k2}, VO ok "
+              f"{int(s.vo_ok.sum())}/{N_FRAMES - 1}, mean n_ic "
+              f"{float(s.n_ic.float().mean()):.2f}, n_li "
+              f"{float(s.n_li.float().mean()):.2f}, n_hi "
+              f"{float(s.n_hi.float().mean()):.2f}, n_active "
+              f"{float(s.n_active.float().mean()):.2f}, overflow "
+              f"{int(s.update_overflow.sum())}, ATE {ate:.4f} m")
+        if k1 != N_FRAMES - 1 or k2 != 2 * (N_FRAMES - 1):
+            raise AssertionError(f"EKF slice: K1 launched {k1}, K2 {k2} "
+                                 f"times; expected {N_FRAMES - 1} and "
+                                 f"{2 * (N_FRAMES - 1)}")
+        if not np.isfinite(t).all():
+            raise AssertionError("EKF slice: non-finite trajectory")
+        if abs(ate - EKF_ATE_CENTER) > EKF_ATE_HALF_WIDTH:
+            raise AssertionError(f"EKF ATE {ate:.4f} m outside "
+                                 f"{EKF_ATE_CENTER} ± {EKF_ATE_HALF_WIDTH}")
+        if run:
+            seconds.append(elapsed)
+    fps = sorted(N_FRAMES / s for s in seconds)
+    phase("ekf-slice", f"EKF frames/s median {statistics.median(fps):.2f}, "
+          f"min {fps[0]:.2f}, max {fps[-1]:.2f} over {len(fps)} runs "
+          f"(frontend + run_slam, host clock around synchronize)")
+    return k1, k2
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is False); the port's smoke run needs one GPU")
+    if not (ROOT / "pre3_tpu_torch").is_dir():
+        raise SystemExit(f"chip_smoke: no pre3_tpu_torch package beside "
+                         f"{__file__}; run it from the root of a checkout")
+    sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
+
+    # ---- 1. device ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    phase("device", f"{kind}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; count {torch.cuda.device_count()}")
+
+    # ---- 2. build ----
+    build_kernels(["ransac_score", "match_stream"])
+
+    # ---- 3. kernels vs plain on the card ----
+    k1_err, k1_times = check_k1()
+    k2_err, k2_times = check_k2()
+
+    # ---- 4./5. VO slice ----
+    im, gt = vo_phases()
+
+    # ---- 6./7. EKF slice ----
+    ekf_parity()
+    k1, k2 = ekf_slice(im, gt)
+    phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [
+        {"name": "ransac_score", "route": "cuda",
+         "source": "pre3_tpu_torch/csrc/ransac_score.cu",
+         "replaces": "pre3_tpu/ops/ransac_score.py:45",
+         "launches": k1, "max_abs_err": k1_err,
+         "ms": k1_times["1024x256"][0], "plain_ms": k1_times["1024x256"][1]},
+        {"name": "match_stream", "route": "cuda",
+         "source": "pre3_tpu_torch/csrc/match_stream.cu",
+         "replaces": "pre3_tpu/ops/matching.py:105",
+         "launches": k2, "max_abs_err": k2_err,
+         "ms": k2_times["256x256-d121"][0],
+         "plain_ms": k2_times["256x256-d121"][1]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

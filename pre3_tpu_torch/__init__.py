@@ -9,11 +9,16 @@ package imports ``torch`` and never ``jax``.
 Package layout (ported so far):
   data/      SR4000 Frame + synthetic scene renderer (numpy copies)
   eval/      ATE/RPE metrics (numpy copy)
-  geometry/  quaternion, SE(3)
+  geometry/  quaternion, SE(3), camera model, inverse-depth landmarks
   frontend/  FAST detector, patch descriptors, depth lift, pipeline
-  ops/       3×3 SVD, descriptor matching, RANSAC scoring (CUDA kernel)
-  vo/        rigid fits, batched RANSAC, dead-reckoning VO
-  utils/     numpy ↔ torch interop with the reference's NamedTuples
+  ops/       3×3 SVD, small Cholesky, descriptor matching (CUDA kernel
+             K2), RANSAC scoring (CUDA kernel K1)
+  vo/        rigid fits, batched RANSAC, dead-reckoning VO, IFT covariance
+  ekf/       EKF-SLAM: state, prediction, measurement, update, 1-point
+             RANSAC, map management, slam_step / run_slam
+  backend/   floor-plane fit (the EKF's orientation prior)
+  utils/     numpy ↔ torch interop with the reference's NamedTuples,
+             stable top-k, nvcc build, async host constants
 """
 
 import torch as _torch

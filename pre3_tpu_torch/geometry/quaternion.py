@@ -114,9 +114,10 @@ def v2q(v: torch.Tensor) -> torch.Tensor:
     angle = torch.sqrt(angle2_safe)
     # sin(a/2)/a with series fallback: 1/2 - a^2/48
     k = torch.where(small, 0.5 - angle2 / 48.0, torch.sin(angle / 2.0) / angle)
-    w = torch.where(small[..., 0], 1.0 - angle2[..., 0] / 8.0,
-                    torch.cos(angle[..., 0] / 2.0))
-    return torch.cat([w[..., None], k * v], dim=-1)
+    # [..., 1]-shaped, not 0-d: under torch.func.jacfwd a 0-d tensor op
+    # with a Python float gives a float64 tangent
+    w = torch.where(small, 1.0 - angle2 / 8.0, torch.cos(angle / 2.0))
+    return torch.cat([w, k * v], dim=-1)
 
 
 def q2v(q: torch.Tensor) -> torch.Tensor:

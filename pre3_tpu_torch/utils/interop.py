@@ -1,12 +1,14 @@
 """State carried across: the reference's NamedTuples ↔ the port's.
 
 The engine has no learned weights; its state is features, matches, random
-draws, poses and trajectories. These helpers turn the JAX package's
-NamedTuples, given as numpy arrays (``Features``, ``Matches``, ``Pose``,
-``Trajectory``, ``VoStep``, ``RigidFit``, ``RansacResult``), into the
-port's NamedTuples of tensors on a given device, and back into numpy.
-Matching is by type name and fields, so this module imports nothing of
-the JAX package.
+draws, poses, the EKF state and trajectories. These helpers turn the JAX
+package's NamedTuples, given as numpy arrays (``Features``, ``Matches``,
+``Pose``, ``Trajectory``, ``VoStep``, ``RigidFit``, ``RansacResult``,
+``EkfState``, ``Observations``, ``StepStats``, ``StepRecord``,
+``SlamTrajectory``, ``Camera``), into the port's NamedTuples of tensors on
+a given device, and back into numpy. Matching is by type name and fields,
+so this module imports nothing of the JAX package. A ``Camera`` keeps its
+intrinsics as Python numbers on the port's side.
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from pre3_tpu_torch.ekf.measurement import Observations
+from pre3_tpu_torch.ekf.slam import SlamTrajectory, StepRecord, StepStats
+from pre3_tpu_torch.ekf.state import EkfState
 from pre3_tpu_torch.frontend.pipeline import Features
+from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.se3 import Pose
 from pre3_tpu_torch.ops.matching import Matches
 from pre3_tpu_torch.vo.dead_reckoning import Trajectory, VoStep
@@ -26,7 +32,8 @@ from pre3_tpu_torch.vo.rigid import RigidFit
 _PORT_TYPES: dict[tuple[str, tuple[str, ...]], type] = {
     (cls.__name__, cls._fields): cls
     for cls in (Features, Matches, Pose, Trajectory, VoStep, RansacResult,
-                RigidFit)
+                RigidFit, EkfState, Observations, StepStats, StepRecord,
+                SlamTrajectory, Camera)
 }
 
 
@@ -38,18 +45,32 @@ def to_torch(value: Any, device: torch.device | str = "cpu") -> Any:
     """numpy arrays (or NamedTuples of them) → tensors on ``device``.
 
     A NamedTuple becomes the port's type of the same name and fields; any
-    other NamedTuple keeps its type."""
+    other NamedTuple keeps its type; plain tuples and lists keep theirs.
+    None stays None."""
+    if value is None:
+        return None
     if _is_namedtuple(value):
         cls = _PORT_TYPES.get((type(value).__name__, value._fields),
                               type(value))
+        if cls is Camera:  # intrinsics as floats, image size as ints
+            return Camera(*(float(v) for v in value[:5]),
+                          *(int(v) for v in value[5:]))
         return cls(*(to_torch(v, device) for v in value))
+    if isinstance(value, (tuple, list)):
+        return type(value)(to_torch(v, device) for v in value)
     return torch.tensor(np.asarray(value), device=device)  # a copy
 
 
 def to_numpy(value: Any) -> Any:
     """Tensors (or NamedTuples of them) → numpy arrays, same structure.
-    The result feeds the reference's NamedTuple: ``JaxType(*to_numpy(x))``."""
+    The result feeds the reference's NamedTuple: ``JaxType(*to_numpy(x))``.
+    A Python float becomes an np.float32 scalar; ints and None stay."""
     if _is_namedtuple(value):
         return type(value)(*(to_numpy(v) for v in value))
+    if isinstance(value, (tuple, list)):
+        return type(value)(to_numpy(v) for v in value)
+    if value is None or isinstance(value, (bool, int)):
+        return value
+    if isinstance(value, float):
+        return np.float32(value)
     return value.detach().cpu().numpy()
-

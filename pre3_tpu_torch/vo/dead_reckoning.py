@@ -18,6 +18,7 @@ from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.quaternion import qnormalize, qprod, qrotate, r2q
 from pre3_tpu_torch.geometry.se3 import Pose
 from pre3_tpu_torch.ops.matching import match_descriptors_auto
+from pre3_tpu_torch.vo.covariance import vo_covariance
 from pre3_tpu_torch.vo.ransac import ransac_rigid
 
 
@@ -37,15 +38,16 @@ def vo_pair(
     batch: int = 1024,
     ratio: float = 1.3,
     min_inliers: int = 8,
+    with_covariance: bool = False,
     range_weighted_refit: bool = False,
 ) -> VoStep:
     """Estimate the rigid motion between two feature sets.
 
     Returns T_c1_c2: p_c1 = R·p_c2 + t for a static scene — the pose of
     camera 2 expressed in camera 1. ``gumbel`` [batch, K] or ``generator``
-    supplies RANSAC's sampling noise (see vo/ransac.py). The IFT covariance
-    of the reference's ``with_covariance`` (vo/covariance.py) is not
-    ported yet; ``cov`` is zeros, as the reference returns without it.
+    supplies RANSAC's sampling noise (see vo/ransac.py). With
+    ``with_covariance``, ``cov`` is the IFT covariance of the increment
+    (vo/covariance.py), the EKF's process noise; otherwise zeros.
     """
     m = match_descriptors_auto(
         f1.desc, f2.desc, valid1=f1.valid, valid2=f2.valid, ratio=ratio
@@ -58,11 +60,15 @@ def vo_pair(
         range_weighted_refit=range_weighted_refit, gumbel=gumbel,
         generator=generator,
     )
+    if with_covariance:
+        cov = vo_covariance(res.r, res.t, p1, p2, res.inliers.to(p1.dtype))
+    else:
+        cov = torch.zeros((6, 6), dtype=p1.dtype, device=p1.device)
     return VoStep(
         delta=Pose(t=res.t, q=r2q(res.r)), ok=res.ok,
         n_inliers=res.n_inliers,
         n_matches=torch.sum(valid, dtype=torch.int32),
-        cov=torch.zeros((6, 6), dtype=p1.dtype, device=p1.device),
+        cov=cov,
     )
 
 

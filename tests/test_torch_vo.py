@@ -94,8 +94,8 @@ def test_match_pair_mask_and_duplicate_tie():
 
 
 def test_match_auto_on_cpu_is_the_plain_path():
-    """Above the K2 cutover a CPU tensor takes the plain path (as the
-    reference does off the TPU); only CUDA tensors raise there."""
+    """At any size a CPU tensor takes the plain path (as the reference
+    does off the TPU); only CUDA tensors launch K2."""
     rng = np.random.default_rng(4)
     d1 = torch.as_tensor(rng.normal(size=(2048, 4)).astype(np.float32))
     d2 = torch.as_tensor(rng.normal(size=(2048, 4)).astype(np.float32))
