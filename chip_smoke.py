@@ -89,6 +89,13 @@ EKF_PARITY_STEPS = 2
 # is below this relative gap may legitimately resolve either way.
 K2_MARGIN = 1e-5
 
+# Kernel timing (phase 3): device time by graph replay (see device_ms).
+GRAPH_CALLS, GRAPH_REPLAYS, GRAPH_READINGS = 20, 10, 5
+# Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet).
+H100_BYTES_PER_S = 3.35e12
+H100_TF32_FLOPS = 495e12
+H100_F32_FLOPS = 67e12
+
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
@@ -117,9 +124,11 @@ def scorer_problem(b: int, n: int, seed: int, all_invalid: bool = False):
         torch.tensor(thr, dtype=torch.float32, device="cuda")]
 
 
-def matcher_problem(n1: int, n2: int, d: int, seed: int):
+def matcher_problem(n1: int, n2: int, d: int, seed: int,
+                    device: str = "cuda"):
     """Unit descriptors; 60% of d1's rows are noisy copies of d2 rows, so
-    the ratio test both accepts and rejects; ~10% invalid on each side."""
+    the ratio test both accepts and rejects; ~10% invalid on each side.
+    (The CPU tests draw the same problems with device="cpu".)"""
     rng = np.random.default_rng(seed)
     d2 = rng.normal(size=(n2, d)).astype(np.float32)
     d1 = rng.normal(size=(n1, d)).astype(np.float32)
@@ -129,23 +138,109 @@ def matcher_problem(n1: int, n2: int, d: int, seed: int):
     d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
     v1 = rng.uniform(size=n1) > 0.1
     v2 = rng.uniform(size=n2) > 0.1
-    return [torch.as_tensor(a, device="cuda") for a in (d1, d2, v1, v2)]
+    return [torch.as_tensor(a, device=device) for a in (d1, d2, v1, v2)]
 
 
-def time_ms(fn, warmup: int = 10, reps: int = 60) -> float:
-    """Median of per-call CUDA-event times, in ms."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
+def capture(fn, calls: int = 1):
+    """``fn`` warmed up on a side stream, then ``calls`` calls captured
+    in one CUDA graph: the graph and the last captured call's outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    return graph, out
+
+
+def device_ms(fn) -> float:
+    """Device time per call, in ms: GRAPH_CALLS back-to-back calls of
+    ``fn`` captured in one CUDA graph, CUDA events around GRAPH_REPLAYS
+    replays, the median of GRAPH_READINGS such readings over
+    GRAPH_REPLAYS·GRAPH_CALLS. No host work (the wrapper's checks,
+    allocations, ctypes call) lies between the events."""
+    graph, _ = capture(fn, GRAPH_CALLS)
+    for _ in range(3):
+        graph.replay()
+    readings = []
+    for _ in range(GRAPH_READINGS):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(GRAPH_REPLAYS):
+            graph.replay()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+        readings.append(start.elapsed_time(stop)
+                        / (GRAPH_REPLAYS * GRAPH_CALLS))
+    return statistics.median(readings)
+
+
+def wrapper_ms(fn, calls: int = 200) -> float:
+    """Host time per eager call, in ms: a host clock around ``calls``
+    calls and one synchronize (the wrapper's Python, its checks and
+    allocations, and the launch; the device time where that is longer)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def replay_equals_eager(fn) -> bool:
+    """One call captured in a CUDA graph and replayed gives outputs
+    bitwise equal to an eager call on the same inputs."""
+    eager = [x.clone() for x in fn()]
+    graph, captured = capture(fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+def bound_ms(flops: float, flop_rate: float, nbytes: float):
+    """The least time the card could take, in ms, and what bounds it:
+    the larger of operations over the peak rate for their type and
+    bytes (each input read once, each output written once) over the
+    memory rate (published peaks of an H100 SXM at 700 W)."""
+    t_ops = flops / flop_rate * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_bound(b: int, n: int):
+    """K1: ~28 f32 flops per (hypothesis, point) — 9 products, 9 sums
+    and 3 differences for R·p2 + t − p1, 3 squares and 2 sums, the
+    compare and the accumulation — outside the tensor cores; bytes: R,
+    t, both point sets, the flags, the threshold, support and err."""
+    return bound_ms(28.0 * b * n, H100_F32_FLOPS,
+                    b * 48 + 2 * n * 12 + n + 4 + b * 8)
+
+
+def k2_bound(n1: int, n2: int, d: int):
+    """K2: the product's 2·N1·N2·D flops at the TF32 tensor-core rate,
+    the fastest the card runs f32 inputs (3xTF32 does three passes and
+    cannot beat it); bytes: both descriptor sets, the column flags and
+    the three outputs."""
+    return bound_ms(2.0 * n1 * n2 * d, H100_TF32_FLOPS,
+                    4 * (n1 + n2) * d + n2 + n1 * 16)
+
+
+def floor_fn(launch, *sizes):
+    """An empty kernel at a kernel's launch configuration (grid, cluster,
+    threads, shared memory) for these sizes: ``launch`` is the kernel
+    library's ``*_floor_launch``."""
+    def run():
+        rc = launch(*sizes, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"empty-kernel launch failed: cudaError {rc}")
+    return run
 
 
 def render(n_frames: int, n_points: int, x_range):
@@ -207,7 +302,7 @@ def build_kernels(names):
 def check_k1():
     """K1 vs its plain version at the VO shapes; timings."""
     from pre3_tpu_torch.ops.ransac_score import (
-        residuals_torch, score_hypotheses, score_hypotheses_torch,
+        _lib, residuals_torch, score_hypotheses, score_hypotheses_torch,
     )
 
     cases = [  # (name, B, N, seed, all_invalid)
@@ -248,23 +343,71 @@ def check_k1():
             raise AssertionError(f"K1 {name}: all-invalid case has support")
         if not all_invalid and n > 1 and int(torch.argmax(sup_k)) != 0:
             raise AssertionError(f"K1 {name}: true motion (hyp 0) did not win")
+    args = scorer_problem(512, 256, 12)
+    if not replay_equals_eager(lambda: score_hypotheses(*args)):
+        raise AssertionError("K1: graph replay differs from the eager call")
+    phase("kernel", "K1 graph replay at 512x256: support and err bitwise "
+          "equal to the eager call")
     timings = {}
-    for name, b, n in (("1024x256", 1024, 256), ("512x288", 512, 288),
-                       ("512x256", 512, 256)):
+    for name, b, n in (("1024x256", 1024, 256), ("512x256", 512, 256),
+                       ("512x288", 512, 288)):
         args = scorer_problem(b, n, 10)
-        ms = time_ms(lambda: score_hypotheses(*args))
-        plain_ms = time_ms(lambda: score_hypotheses_torch(*args))
-        timings[name] = (ms, plain_ms)
-        phase("kernel", f"K1 time B×N={name}: K1 {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (median of 60, CUDA events)")
+        t = dict(device_ms=device_ms(lambda: score_hypotheses(*args)),
+                 plain_ms=device_ms(lambda: score_hypotheses_torch(*args)),
+                 library_ms=None,
+                 wrapper_ms=wrapper_ms(lambda: score_hypotheses(*args)),
+                 launch_floor_ms=device_ms(floor_fn(
+                     _lib().ransac_score_floor_launch, b)))
+        t["bound_ms"], t["bound_by"] = k1_bound(b, n)
+        timings[name] = t
+        phase("kernel", f"K1 time B×N={name}: device {t['device_ms']:.5f} ms "
+              f"(empty-kernel floor {t['launch_floor_ms']:.5f}), plain "
+              f"{t['plain_ms']:.5f}, library none, wrapper (host) "
+              f"{t['wrapper_ms']:.5f}; bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), {t['bound_ms'] / t['device_ms']:.2%} of it")
     return max_abs_err, timings
+
+
+def k2_compare(name, k, p, d1, d2) -> float:
+    """K2's Matches vs the plain matcher's: index equal on every row whose
+    relative best/second margin exceeds K2_MARGIN, accepted equal where
+    the ratio margin does too, "no candidate" (BIG) exactly where the
+    plain version has it, dist2 and second within 1e-5·max‖d‖². Returns
+    the largest dist2 error."""
+    from pre3_tpu_torch.ops.matching import BIG
+
+    scale = float(torch.maximum((d1 * d1).sum(-1).max(),
+                                (d2 * d2).sum(-1).max()))
+    margin = (p.dist2_second - p.dist2) / p.dist2.clamp(min=1e-30)
+    clear = margin > K2_MARGIN
+    ratio_gap = (p.dist2 * 1.3 - p.dist2_second).abs() / (
+        p.dist2_second.clamp(min=1e-30))
+    sel = clear & (ratio_gap > K2_MARGIN)
+    idx_bad = int((k.index != p.index)[clear].sum())
+    acc_bad = int((k.accepted != p.accepted)[sel].sum())
+    # distances compared where finite; BIG (no candidate) must match
+    # exactly
+    big_bad = int(((k.dist2 >= BIG) != (p.dist2 >= BIG)).sum() + (
+        (k.dist2_second >= BIG) != (p.dist2_second >= BIG)).sum())
+    err = max(float(torch.where(q < BIG, (a - q).abs(), 0.0).max())
+              for a, q in ((k.dist2, p.dist2),
+                           (k.dist2_second, p.dist2_second)))
+    phase("kernel", f"K2 {name}: index mismatches on clear rows "
+          f"{idx_bad}/{int(clear.sum())}, accepted mismatches "
+          f"{acc_bad}/{int(sel.sum())}, dist2 max abs err {err:.3e} "
+          f"(tol {1e-5 * scale:.1e}), accepted {int(k.accepted.sum())}")
+    if idx_bad or acc_bad or big_bad or err > 1e-5 * scale:
+        raise AssertionError(f"K2 {name}: disagrees with the plain matcher")
+    return err
 
 
 def check_k2():
     """K2 vs the plain matcher on the main path's shapes and the corner
-    cases; timings at 256², 4096² and 8192²."""
+    cases, those of the cluster's column split among them; graph replay
+    vs eager; timings at 256², 4096² and 8192²."""
     from pre3_tpu_torch.ops.matching import (
-        BIG, match_descriptors, match_descriptors_k2,
+        BIG, K2_RANKS, _best_two, _launch_k2, _lib, _pairwise_dist2,
+        match_descriptors, match_descriptors_k2,
     )
 
     cases = [  # (name, N1, N2, D, seed)
@@ -274,6 +417,11 @@ def check_k2():
         ("one-1x1-d121", 1, 1, 121, 3),
         ("map-4096x4096-d128", 4096, 4096, 128, 4),
         ("map-8192x8192-d128", 8192, 8192, 128, 5),
+        # fewer columns than the cluster's ranks: ranks with no column
+        ("few-64x1-d121", 64, 1, 121, 8),
+        ("few-64x7-d121", 64, 7, 121, 9),
+        # one column past 8 full 64-column tiles: ragged rank ranges
+        ("split-300x513-d128", 300, 8 * 64 + 1, 128, 10),
     ]
     max_abs_err = 0.0
     for name, n1, n2, d, seed in cases:
@@ -281,29 +429,7 @@ def check_k2():
         k = match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)
         p = match_descriptors(d1, d2, v1, v2, ratio=1.3)
         torch.cuda.synchronize()
-        scale = float(torch.maximum((d1 * d1).sum(-1).max(),
-                                    (d2 * d2).sum(-1).max()))
-        margin = (p.dist2_second - p.dist2) / p.dist2.clamp(min=1e-30)
-        clear = margin > K2_MARGIN
-        ratio_gap = (p.dist2 * 1.3 - p.dist2_second).abs() / (
-            p.dist2_second.clamp(min=1e-30))
-        sel = clear & (ratio_gap > K2_MARGIN)
-        idx_bad = int((k.index != p.index)[clear].sum())
-        acc_bad = int((k.accepted != p.accepted)[sel].sum())
-        # distances compared where finite; BIG (no candidate) must match
-        # exactly
-        big_bad = int(((k.dist2 >= BIG) != (p.dist2 >= BIG)).sum() + (
-            (k.dist2_second >= BIG) != (p.dist2_second >= BIG)).sum())
-        err = max(float(torch.where(q < BIG, (a - q).abs(), 0.0).max())
-                  for a, q in ((k.dist2, p.dist2),
-                               (k.dist2_second, p.dist2_second)))
-        max_abs_err = max(max_abs_err, err)
-        phase("kernel", f"K2 {name}: index mismatches on clear rows "
-              f"{idx_bad}/{int(clear.sum())}, accepted mismatches "
-              f"{acc_bad}/{int(sel.sum())}, dist2 max abs err {err:.3e} "
-              f"(tol {1e-5 * scale:.1e}), accepted {int(k.accepted.sum())}")
-        if idx_bad or acc_bad or big_bad or err > 1e-5 * scale:
-            raise AssertionError(f"K2 {name}: disagrees with the plain matcher")
+        max_abs_err = max(max_abs_err, k2_compare(name, k, p, d1, d2))
         if n2 > 1 and not bool(k.accepted.any()):
             raise AssertionError(f"K2 {name}: nothing accepted")
 
@@ -321,6 +447,35 @@ def check_k2():
             raise AssertionError(f"K2 duplicate tie: {m}")
     phase("kernel", "K2 duplicate-column tie: index [7, 40, 250], second == "
           "best on the tied rows, rejected — equal to the plain version")
+    # duplicate pairs straddling the boundaries of the cluster's column
+    # split (rank s walks [s·N2/S, (s+1)·N2/S)): exact
+    n2 = 300
+    cut1, cut2 = n2 // K2_RANKS, 2 * n2 // K2_RANKS
+    d1, d2, _, _ = matcher_problem(2, n2, 121, 13)
+    d2[cut1] = d2[cut1 - 1]
+    d2[cut2] = d2[cut2 - 1]
+    d1 = d2[[cut1 - 1, cut2 - 1]].clone()
+    k = match_descriptors_k2(d1, d2, ratio=1.5)
+    p = match_descriptors(d1, d2, ratio=1.5)
+    for m in (k, p):
+        if m.index.tolist() != [cut1 - 1, cut2 - 1] or bool(
+            m.accepted.any()
+        ) or not torch.equal(m.dist2, m.dist2_second):
+            raise AssertionError(f"K2 straddling tie: {m}")
+    phase("kernel", f"K2 tie across the split (columns {cut1 - 1}|{cut1}, "
+          f"{cut2 - 1}|{cut2}): lower index, second == best, rejected — "
+          "equal to the plain version")
+    # valid columns inside one rank's range only
+    lo, hi = 4 * n2 // K2_RANKS, 5 * n2 // K2_RANKS
+    d1, d2, v1, _ = matcher_problem(40, n2, 121, 14)
+    one = torch.zeros(n2, dtype=torch.bool, device="cuda")
+    one[lo:hi] = True
+    k = match_descriptors_k2(d1, d2, v1, one, ratio=1.3)
+    p = match_descriptors(d1, d2, v1, one, ratio=1.3)
+    max_abs_err = max(max_abs_err, k2_compare(
+        f"valid-in-one-split-40x{n2}", k, p, d1, d2))
+    if not bool(((k.index >= lo) & (k.index < hi)).all()):
+        raise AssertionError("K2: a match outside the only valid range")
     # all-invalid d2: exact
     d1, d2, v1, _ = matcher_problem(50, 60, 121, 7)
     none2 = torch.zeros(60, dtype=torch.bool, device="cuda")
@@ -336,16 +491,39 @@ def check_k2():
     phase("kernel", "K2 all-invalid d2: best = second = 1e30, index 0, "
           "nothing accepted — equal to the plain version")
 
+    d1, d2, v1, v2 = matcher_problem(256, 256, 121, 12)
+    if not replay_equals_eager(
+        lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)
+    ):
+        raise AssertionError("K2: graph replay differs from the eager call")
+    phase("kernel", "K2 graph replay at 256x256-d121: index, dist2, second "
+          "and accepted bitwise equal to the eager call")
+
     timings = {}
-    for name, n, d in (("256x256-d121", 256, 121), ("4096x4096-d128", 4096, 128),
+    for name, n, d in (("256x256-d121", 256, 121),
+                       ("4096x4096-d128", 4096, 128),
                        ("8192x8192-d128", 8192, 128)):
         d1, d2, v1, v2 = matcher_problem(n, n, d, 11)
-        ms = time_ms(lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3))
-        plain_ms = time_ms(lambda: match_descriptors(d1, d2, v1, v2,
-                                                     ratio=1.3))
-        timings[name] = (ms, plain_ms)
-        phase("kernel", f"K2 time {name}: K2 {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (median of 60, CUDA events)")
+        # the kernel alone, and the plain version of what it computes
+        # (masked distances → best/second); the ratio test after both is
+        # a few elementwise kernels
+        t = dict(
+            device_ms=device_ms(lambda: _launch_k2(d1, d2, v2)),
+            plain_ms=device_ms(lambda: _best_two(torch.where(
+                v2[None, :], _pairwise_dist2(d1, d2), BIG))),
+            library_ms=device_ms(lambda: torch.mm(d1, d2.T)),
+            wrapper_ms=wrapper_ms(
+                lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)),
+            launch_floor_ms=device_ms(floor_fn(
+                _lib().match_stream_floor_launch, n, n, d)))
+        t["bound_ms"], t["bound_by"] = k2_bound(n, n, d)
+        timings[name] = t
+        phase("kernel", f"K2 time {name}: device {t['device_ms']:.5f} ms "
+              f"(empty-kernel floor {t['launch_floor_ms']:.5f}), plain "
+              f"{t['plain_ms']:.5f}, torch.mm f32 {t['library_ms']:.5f}, "
+              f"wrapper (host) {t['wrapper_ms']:.5f}; bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['device_ms']:.2%} of it")
     return max_abs_err, timings
 
 
@@ -560,18 +738,20 @@ def main() -> None:
     k1, k2 = ekf_slice(im, gt)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
+    # times at the EKF step's shapes, whose run gave the launch counts;
+    # "ms" is the graph-replayed device time
+    k1_t, k2_t = k1_times["512x256"], k2_times["256x256-d121"]
     print(json.dumps({"kernels": [
         {"name": "ransac_score", "route": "cuda",
          "source": "pre3_tpu_torch/csrc/ransac_score.cu",
          "replaces": "pre3_tpu/ops/ransac_score.py:45",
-         "launches": k1, "max_abs_err": k1_err,
-         "ms": k1_times["1024x256"][0], "plain_ms": k1_times["1024x256"][1]},
+         "shape": "B=512, N=256", "launches": k1, "max_abs_err": k1_err,
+         "ms": k1_t["device_ms"], **k1_t},
         {"name": "match_stream", "route": "cuda",
          "source": "pre3_tpu_torch/csrc/match_stream.cu",
          "replaces": "pre3_tpu/ops/matching.py:105",
-         "launches": k2, "max_abs_err": k2_err,
-         "ms": k2_times["256x256-d121"][0],
-         "plain_ms": k2_times["256x256-d121"][1]},
+         "shape": "N1=N2=256, D=121", "launches": k2, "max_abs_err": k2_err,
+         "ms": k2_t["device_ms"], **k2_t},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

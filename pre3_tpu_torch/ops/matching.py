@@ -27,7 +27,8 @@ import torch
 from pre3_tpu_torch.utils.cuda_build import load_library
 
 BIG = 1e30
-K2_MAX_DIM = 256  # K2 holds its d1 rows in shared memory (kMaxD)
+K2_MAX_DIM = 256  # widest rows K2 stages in shared memory (kMaxD)
+K2_RANKS = 8  # blocks per cluster in K2, each a range of d2's columns
 
 
 class Matches(NamedTuple):
@@ -102,6 +103,9 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
+        floor = lib.match_stream_floor_launch
+        floor.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        floor.restype = ctypes.c_int
     return lib
 
 
@@ -117,23 +121,10 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
         )
 
 
-def match_descriptors_k2(
-    d1: torch.Tensor,
-    d2: torch.Tensor,
-    valid1: torch.Tensor | None = None,
-    valid2: torch.Tensor | None = None,
-    ratio: float = 1.5,
-) -> Matches:
-    """Streaming matcher: kernel K2 for CUDA tensors, the plain version
-    for CPU tensors. Nothing falls back: a CUDA input the kernel does not
-    take raises. The ratio test and ``valid1`` are applied after the
-    kernel, as the reference does.
-
-    ``match_descriptors_k2.launches`` counts kernel launches."""
-    device = d1.device
-    if device.type == "cpu":
-        return match_descriptors(d1, d2, valid1=valid1, valid2=valid2,
-                                 ratio=ratio)
+def _launch_k2(d1: torch.Tensor, d2: torch.Tensor,
+               valid2: torch.Tensor | None):
+    """K2 alone on CUDA tensors: (index, best, second) per row of d1.
+    Raises on what the kernel does not take, and on a failed launch."""
     if d1.dim() != 2 or d2.dim() != 2 or d1.shape[1] != d2.shape[1]:
         raise ValueError(
             "match_descriptors_k2 takes d1 [N1, D] and d2 [N2, D]; got "
@@ -142,6 +133,7 @@ def match_descriptors_k2(
     if n2 < 1 or not 1 <= d <= K2_MAX_DIM:
         raise ValueError(f"match_descriptors_k2: needs N2 ≥ 1 and 1 ≤ D ≤ "
                          f"{K2_MAX_DIM}; got N2={n2}, D={d}")
+    device = d1.device
     if device.type != "cuda":
         raise ValueError(f"match_descriptors_k2: no kernel for device {device}")
     _check("d1", d1, torch.float32, (n1, d), device)
@@ -164,6 +156,26 @@ def match_descriptors_k2(
             raise RuntimeError(f"match_stream kernel launch failed: cudaError "
                                f"{rc} (N1={n1}, N2={n2}, D={d})")
         match_descriptors_k2.launches += 1
+    return idx, best, second
+
+
+def match_descriptors_k2(
+    d1: torch.Tensor,
+    d2: torch.Tensor,
+    valid1: torch.Tensor | None = None,
+    valid2: torch.Tensor | None = None,
+    ratio: float = 1.5,
+) -> Matches:
+    """Streaming matcher: kernel K2 for CUDA tensors, the plain version
+    for CPU tensors. Nothing falls back: a CUDA input the kernel does not
+    take raises. The ratio test and ``valid1`` are applied after the
+    kernel, as the reference does.
+
+    ``match_descriptors_k2.launches`` counts kernel launches."""
+    if d1.device.type == "cpu":
+        return match_descriptors(d1, d2, valid1=valid1, valid2=valid2,
+                                 ratio=ratio)
+    idx, best, second = _launch_k2(d1, d2, valid2)
     return Matches(index=idx, dist2=best, dist2_second=second,
                    accepted=_ratio_test(best, second, ratio, valid1))
 

@@ -68,6 +68,9 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int] + [
             ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
+        floor = lib.ransac_score_floor_launch
+        floor.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        floor.restype = ctypes.c_int
     return lib
 
 
