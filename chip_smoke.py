@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pre3_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's two slices through their entry points and checks each
+Drives the port's slices through their entry points and checks each
 CUDA kernel of those paths against its plain PyTorch version:
 
   * VO dead reckoning: ``extract_features`` → ``run_sequence`` (K2 match
     + K1-scored RANSAC per frame pair);
   * EKF-SLAM: ``extract_features`` → ``run_slam`` (per frame: VO with
     K2 + K1 and its IFT covariance, prediction, K2 map matching, 1-point
-    RANSAC, Kalman updates, map management).
+    RANSAC, Kalman updates, map management);
+  * the flagship, BASELINE config #3 as bench.py headlines it:
+    ``extract_features_sift`` → ``run_slam`` at K=256, and frame by frame
+    through ``OnlineSlam(extractor="sift")`` as __graft_entry__ builds it.
 
 Run it from the root of a checkout:
 
@@ -27,9 +30,23 @@ device, and imports nothing of JAX. Phases:
                   point: frames/s, K1 and K2 launches per run, ATE;
   6. ekf-parity — a 16-frame run_slam (K=64, plane fit on) on the card vs
                   the port's CPU path, same injected draws;
-  7. ekf-slice  — the 256-frame corridor run_slam at the bench headline's
-                  operating point (K=256, D=1549): frames/s, K1 and K2
-                  launches per run, n_ic/n_li/n_active, ATE.
+  7. ekf-options — the same, with the iterated update (est_method="iekf"),
+                  and with the attitude update every 4 steps;
+  8. ekf-slice  — the 256-frame corridor run_slam with FAST features
+                  (K=256, D=1549): frames/s, K1 and K2 launches, ATE;
+  9. sift-parity — an 8-frame extract_features_sift on the card vs the
+                  port's CPU path: keypoints as sets, descriptors;
+ 10. sift-slice — the headline: the 256-frame corridor through
+                  extract_features_sift and run_slam with bench.py's CFG
+                  (K=256, min_measured=50, max_update_slots=96): frames/s
+                  and the frontend's share, K1 and K2 launches per run,
+                  n_ic/n_li/n_active, peak memory, ATE;
+ 11. online     — OnlineSlam(extractor="sift", n_landmarks=64) frame by
+                  frame over 32 corridor frames against run_slam under the
+                  same draws, with no host sync after the bootstrap; then
+                  process_chunk over chunks of 8.
+
+Each phase prints its seconds (``[time]`` lines).
 
 The line before the last is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -84,6 +101,31 @@ EKF_ATE_CENTER, EKF_ATE_HALF_WIDTH = 0.153, 0.05
 # may differ: a near-tie can flip one match in one step.
 EKF_PARITY_TOL = 1e-3
 EKF_PARITY_STEPS = 2
+# The FAST EKF slice keeps 1 timed run: the SIFT slice is the headline.
+EKF_TIMED_RUNS = 1
+
+# The flagship (bench.py CFG): SIFT, 3 octaves × 96 = 288 keypoints of
+# 128 dims per frame, run_slam at K=256 with the default ratio 1.5.
+SIFT_KF = 288
+SIFT_LANDMARKS = 256
+SIFT_CFG = dict(min_measured=50, max_update_slots=96)
+# ATE band of the SIFT slice: the JAX reference on the CPU (its exact SIFT
+# branch, tools/jax_sift_ate_band.py) over keys 0..6, same sequence and
+# config, spans 0.1126–0.1277 m, mean 0.1188 (PERF.md §2); the band is
+# 0.119 ± 0.03 m, ~2× that spread on each side. Dead-reckoned VO alone is
+# 0.848 m.
+SIFT_ATE_CENTER, SIFT_ATE_HALF_WIDTH = 0.119, 0.03
+# Phase 9 (card vs CPU frontend): share of the CPU's valid keypoints found
+# on the card (uv within 1e-3 px), and descriptor agreement on them —
+# 1e-5 where the positions agree within 1e-5 px, 1e-4 on every match (a
+# DoG summed in another order moves a refined keypoint by up to ~4e-4 px,
+# and its upright descriptor by up to ~3e-5; tests/test_torch_sift.py).
+SIFT_MIN_MATCHED = 0.99
+SIFT_DESC_TOL, SIFT_DESC_TOL_MOVED = 1e-5, 1e-4
+# Phase 11: OnlineSlam vs run_slam on the card, same draws and frontend
+# calls; __graft_entry__'s configuration.
+ONLINE_FRAMES, ONLINE_LANDMARKS, ONLINE_CHUNK = 32, 64, 8
+ONLINE_TOL = 1e-5
 
 # K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
 # is below this relative gap may legitimately resolve either way.
@@ -404,7 +446,8 @@ def k2_compare(name, k, p, d1, d2) -> float:
 def check_k2():
     """K2 vs the plain matcher on the main path's shapes and the corner
     cases, those of the cluster's column split among them; graph replay
-    vs eager; timings at 256², 4096² and 8192²."""
+    vs eager; timings at the slices' shapes (256²×121, 288²×128 and
+    256×288×128) and at 4096² and 8192²."""
     from pre3_tpu_torch.ops.matching import (
         BIG, K2_RANKS, _best_two, _launch_k2, _lib, _pairwise_dist2,
         match_descriptors, match_descriptors_k2,
@@ -413,6 +456,7 @@ def check_k2():
     cases = [  # (name, N1, N2, D, seed)
         ("step-256x256-d121", 256, 256, 121, 0),
         ("sift-256x288-d128", 256, 288, 128, 1),
+        ("sift-vo-288x288-d128", 288, 288, 128, 15),
         ("ragged-1000x777-d121", 1000, 777, 121, 2),
         ("one-1x1-d121", 1, 1, 121, 3),
         ("map-4096x4096-d128", 4096, 4096, 128, 4),
@@ -500,10 +544,12 @@ def check_k2():
           "and accepted bitwise equal to the eager call")
 
     timings = {}
-    for name, n, d in (("256x256-d121", 256, 121),
-                       ("4096x4096-d128", 4096, 128),
-                       ("8192x8192-d128", 8192, 128)):
-        d1, d2, v1, v2 = matcher_problem(n, n, d, 11)
+    for name, n1, n2, d in (("256x256-d121", 256, 256, 121),
+                            ("288x288-d128", 288, 288, 128),
+                            ("256x288-d128", 256, 288, 128),
+                            ("4096x4096-d128", 4096, 4096, 128),
+                            ("8192x8192-d128", 8192, 8192, 128)):
+        d1, d2, v1, v2 = matcher_problem(n1, n2, d, 11)
         # the kernel alone, and the plain version of what it computes
         # (masked distances → best/second); the ratio test after both is
         # a few elementwise kernels
@@ -515,8 +561,8 @@ def check_k2():
             wrapper_ms=wrapper_ms(
                 lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)),
             launch_floor_ms=device_ms(floor_fn(
-                _lib().match_stream_floor_launch, n, n, d)))
-        t["bound_ms"], t["bound_by"] = k2_bound(n, n, d)
+                _lib().match_stream_floor_launch, n1, n2, d)))
+        t["bound_ms"], t["bound_by"] = k2_bound(n1, n2, d)
         timings[name] = t
         phase("kernel", f"K2 time {name}: device {t['device_ms']:.5f} ms "
               f"(empty-kernel floor {t['launch_floor_ms']:.5f}), plain "
@@ -596,11 +642,14 @@ def vo_phases():
     phase("slice", f"VO frames/s median {statistics.median(fps):.2f}, min "
           f"{fps[0]:.2f}, max {fps[-1]:.2f} over {len(fps)} runs "
           f"(frontend + run_sequence, host clock around synchronize)")
-    return im, gt
+    return images, im, gt
 
 
-def ekf_draws(n_frames: int, cfg, n_landmarks: int, seed: int):
-    """Numpy-seeded Gumbel draws for every random choice of run_slam."""
+def ekf_draws(n_frames: int, cfg, n_landmarks: int, seed: int,
+              kf: int = MAX_FEATURES):
+    """Numpy-seeded Gumbel draws for every random choice of run_slam: the
+    plane fits of the attitude update's steps (i % N == 0) stacked in
+    step order."""
     from pre3_tpu_torch.ekf.one_point_ransac import pool_size
     from pre3_tpu_torch.ekf.slam import SlamDraws, StepDraws
 
@@ -609,35 +658,76 @@ def ekf_draws(n_frames: int, cfg, n_landmarks: int, seed: int):
     m = pool_size(n_landmarks, cfg.max_update_slots or None)
     n_region = (144 - int(144 * 0.6)) * 176
     s = n_frames - 1
+    every = cfg.heading_update_every
+    n_fits = sum(1 for i in range(1, n_frames) if every and i % every == 0)
     return SlamDraws(
-        steps=StepDraws(vo=g(s, cfg.vo_batch, MAX_FEATURES),
-                        ransac=g(s, cfg.ransac_batch, m),
-                        add=g(s, MAX_FEATURES)),
-        boot_add=g(MAX_FEATURES), plane=g(512, n_region))
+        steps=StepDraws(vo=g(s, cfg.vo_batch, kf),
+                        ransac=g(s, cfg.ransac_batch, m), add=g(s, kf),
+                        heading=g(n_fits, 512, n_region) if n_fits else None),
+        boot_add=g(kf), plane=g(512, n_region))
 
 
-def ekf_parity():
-    """Phase 6: 16-frame run_slam, K=64, card vs the port's CPU path."""
+def tilted_floor_xyz(tilt_deg: float = -20.0) -> np.ndarray:
+    """An xyz image whose lower rows see a floor 1 m below a camera
+    pitched by tilt_deg, and whose upper rows see a wall 4 m ahead (the
+    rendered corridor has no floor, so its plane fits fail the gates)."""
+    from pre3_tpu_torch.data.synthetic import _rodrigues as rodrigues
+
+    h, w = 144, 176
+    up_cam = rodrigues(np.array([np.radians(tilt_deg), 0, 0])).T @ np.array(
+        [0.0, -1.0, 0.0])
+    rr, cc = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    rays = np.stack([(cc - 88) / 250.0, (rr - 72) / 250.0,
+                     np.ones_like(cc, float)], axis=-1)
+    denom = rays @ up_cam
+    hits = denom < -1e-3
+    s = -1.0 / np.where(hits, denom, -1.0)
+    floor = (rr > h * 0.55) & hits & (s > 0) & (s < 8)
+    return np.where(floor[..., None], rays * s[..., None],
+                    rays * 4.0).astype(np.float32)
+
+
+def ekf_parity(name: str = "ekf-parity", **options):
+    """Phase 6 (7 with ``options``): 16-frame run_slam, K=64, card vs the
+    port's CPU path, same draws. With the attitude update, every frame's
+    xyz image is a tilted floor (so the plane fits pass their gates), and
+    the card's run is also held against the same run without it: the
+    update must have moved the orientation."""
     from pre3_tpu_torch.ekf.slam import SlamConfig
     from pre3_tpu_torch.utils.interop import to_torch
 
     n_short, k = 16, 64
     # max_update_slots 48 < K so the bounded update and pool run too
-    cfg = SlamConfig(min_measured=50, max_update_slots=48, match_ratio=1.3)
+    cfg = SlamConfig(min_measured=50, max_update_slots=48, match_ratio=1.3,
+                     **options)
     images, _ = render(n_short, 300, None)
+    heading = cfg.heading_update_every > 0
+    xyz_imgs = np.stack([tilted_floor_xyz()] * n_short) if heading else (
+        images[1])
     draws = ekf_draws(n_short, cfg, k, seed=8)
     outs = {}
     for dev in ("cuda", "cpu"):
         im = [torch.as_tensor(a, device=dev) for a in images]
         outs[dev] = run_ekf(im, k, cfg, draws=to_torch(draws, dev),
-                            xyz_imgs=im[1])
+                            xyz_imgs=torch.as_tensor(xyz_imgs, device=dev))
+    if heading:
+        off = run_ekf([torch.as_tensor(a, device="cuda") for a in images], k,
+                      cfg._replace(heading_update_every=0),
+                      draws=to_torch(draws, "cuda"),
+                      xyz_imgs=torch.as_tensor(xyz_imgs, device="cuda"))
+        moved = float((off.q - outs["cuda"].q).abs().max())
+        phase(name, f"attitude update every {cfg.heading_update_every} "
+              f"steps moved q by up to {moved:.3e} against the same run "
+              f"without it")
+        if moved < 1e-5:
+            raise AssertionError(f"{name}: the attitude update never applied")
     gpu, cpu = outs["cuda"], outs["cpu"]
     dt = float((gpu.t.cpu() - cpu.t).abs().max())
     dq = float((gpu.q.cpu() - cpu.q).abs().max())
     d_ic = (gpu.stats.n_ic.cpu() - cpu.stats.n_ic).abs()
     d_li = (gpu.stats.n_li.cpu() - cpu.stats.n_li).abs()
     steps_off = int(((d_ic > 0) | (d_li > 0)).sum())
-    phase("ekf-parity", f"{n_short} frames, K={k}: n_ic equal per step "
+    phase(name, f"{n_short} frames, K={k} {options or ''}: n_ic equal per step "
           f"{bool((d_ic == 0).all())}, n_li equal per step "
           f"{bool((d_li == 0).all())} (steps differing {steps_off}, max "
           f"|Δn_ic| {int(d_ic.max())}, max |Δn_li| {int(d_li.max())}), "
@@ -648,11 +738,12 @@ def ekf_parity():
     ) or int(d_ic.max()) > 1 or int(d_li.max()) > 1 or not bool(
         torch.isfinite(gpu.t).all()
     ):
-        raise AssertionError("card and CPU EKF runs disagree")
+        raise AssertionError(f"{name}: card and CPU EKF runs disagree")
 
 
 def ekf_slice(im, gt):
-    """Phase 7: the 256-frame corridor EKF slice, 1 warm-up + 3 timed."""
+    """Phase 8: the 256-frame corridor EKF slice with FAST features,
+    1 warm-up + EKF_TIMED_RUNS timed."""
     from pre3_tpu_torch.ekf.slam import SlamConfig
     from pre3_tpu_torch.eval.trajectory import ate_rmse
     from pre3_tpu_torch.ops.matching import match_descriptors_k2
@@ -660,7 +751,7 @@ def ekf_slice(im, gt):
 
     cfg = SlamConfig(**EKF_CFG)
     seconds = []
-    for run in range(TIMED_RUNS + 1):  # run 0 warms up under sync checks
+    for run in range(EKF_TIMED_RUNS + 1):  # run 0 warms up under sync checks
         gen = torch.Generator(device="cuda").manual_seed(run)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error" if run == 0 else "default")
@@ -702,6 +793,208 @@ def ekf_slice(im, gt):
     return k1, k2
 
 
+def sift_features(images):
+    from pre3_tpu_torch.frontend.pipeline import extract_features_sift
+
+    return extract_features_sift(*images)
+
+
+def match_keypoints(cpu, gpu):
+    """The CPU run's valid keypoints found among the card's at uv within
+    1e-3 px, per frame: (share found, largest uv gap, descriptor error on
+    matches whose uv agree within 1e-5 px, and on every match)."""
+    found, total, gap, err_same, err_all = 0, 0, 0.0, 0.0, 0.0
+    for f in range(cpu.uv.shape[0]):
+        cv, gv = cpu.valid[f], gpu.valid[f].cpu()
+        cuv, guv = cpu.uv[f][cv], gpu.uv[f].cpu()[gv]
+        d = (cuv[:, None] - guv[None]).abs().amax(-1)
+        dmin, j = d.min(dim=1)
+        hit = dmin < 1e-3
+        found += int(hit.sum())
+        total += int(cv.sum())
+        if bool(hit.any()):
+            gap = max(gap, float(dmin[hit].max()))
+            e = (cpu.desc[f][cv][hit] - gpu.desc[f].cpu()[gv][j[hit]]).abs(
+                ).amax(-1)
+            err_all = max(err_all, float(e.max()))
+            same = dmin[hit] < 1e-5
+            if bool(same.any()):
+                err_same = max(err_same, float(e[same].max()))
+    return found / max(total, 1), gap, err_same, err_all
+
+
+def sift_parity():
+    """Phase 9: an 8-frame extract_features_sift, card vs the port's CPU
+    path: keypoints as sets, descriptors on the matches."""
+    n_short = 8
+    images, _ = render(n_short, 300, None)
+    gpu = sift_features([torch.as_tensor(a, device="cuda") for a in images])
+    torch.cuda.synchronize()
+    cpu = sift_features([torch.as_tensor(a) for a in images])
+    share, gap, err_same, err_all = match_keypoints(cpu, gpu)
+    n_cpu, n_gpu = int(cpu.valid.sum()), int(gpu.valid.sum())
+    phase("sift-parity", f"{n_short} frames: valid keypoints CPU {n_cpu}, "
+          f"card {n_gpu}; {share:.2%} of the CPU's found on the card (uv "
+          f"within 1e-3 px, largest gap {gap:.2e} px); descriptor max abs "
+          f"error {err_same:.2e} where uv agree within 1e-5 px (tolerance "
+          f"{SIFT_DESC_TOL}), {err_all:.2e} on every match (tolerance "
+          f"{SIFT_DESC_TOL_MOVED})")
+    if share < SIFT_MIN_MATCHED or err_same > SIFT_DESC_TOL or (
+        err_all > SIFT_DESC_TOL_MOVED
+    ):
+        raise AssertionError("card and CPU SIFT frontends disagree")
+
+
+def sift_slice(im, gt):
+    """Phase 10, the headline: the 256-frame corridor through
+    extract_features_sift and run_slam with bench.py's CFG, 1 warm-up
+    under sync checks + TIMED_RUNS timed. The frontend and run_slam are
+    timed apart (a synchronize between them)."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.ops.matching import match_descriptors_k2
+    from pre3_tpu_torch.ops.ransac_score import score_hypotheses
+
+    cfg = SlamConfig(**SIFT_CFG)
+    seconds, frontend = [], []
+    for run in range(TIMED_RUNS + 1):  # run 0 warms up under sync checks
+        gen = torch.Generator(device="cuda").manual_seed(run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("error" if run == 0 else "default")
+        score_hypotheses.launches = 0
+        match_descriptors_k2.launches = 0
+        t0 = time.perf_counter()
+        feats = sift_features(im)
+        if run:
+            torch.cuda.synchronize()
+        t_fe = time.perf_counter() - t0
+        out = run_slam(sr4000_camera(), feats, cfg,
+                       n_landmarks=SIFT_LANDMARKS, generator=gen)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        k1, k2 = score_hypotheses.launches, match_descriptors_k2.launches
+        peak = torch.cuda.max_memory_allocated()
+        s = out.stats
+        t = out.t.cpu().numpy()
+        ate = ate_rmse(t, gt, align=False)
+        phase("sift-slice", f"run {run}{' (warm-up, no host sync)' if run == 0 else ''}: "
+              f"{elapsed:.4f} s, {N_FRAMES / elapsed:.2f} frames/s"
+              f"{f', frontend {t_fe:.4f} s ({t_fe / elapsed:.1%})' if run else ''}, "
+              f"K1 launches {k1}, K2 launches {k2}, VO ok "
+              f"{int(s.vo_ok.sum())}/{N_FRAMES - 1}, valid keypoints per "
+              f"frame {float(feats.valid.sum(-1).float().mean()):.1f}, mean "
+              f"n_ic {float(s.n_ic.float().mean()):.2f}, n_li "
+              f"{float(s.n_li.float().mean()):.2f}, n_hi "
+              f"{float(s.n_hi.float().mean()):.2f}, n_active "
+              f"{float(s.n_active.float().mean()):.2f}, overflow "
+              f"{int(s.update_overflow.sum())}, peak memory "
+              f"{peak / 2**20:.1f} MiB, ATE {ate:.4f} m")
+        if k1 != N_FRAMES - 1 or k2 != 2 * (N_FRAMES - 1):
+            raise AssertionError(f"SIFT slice: K1 launched {k1}, K2 {k2} "
+                                 f"times; expected {N_FRAMES - 1} and "
+                                 f"{2 * (N_FRAMES - 1)}")
+        if feats.desc.shape != (N_FRAMES, SIFT_KF, 128):
+            raise AssertionError(f"SIFT slice: features {feats.desc.shape}")
+        if not np.isfinite(t).all():
+            raise AssertionError("SIFT slice: non-finite trajectory")
+        if abs(ate - SIFT_ATE_CENTER) > SIFT_ATE_HALF_WIDTH:
+            raise AssertionError(f"SIFT ATE {ate:.4f} m outside "
+                                 f"{SIFT_ATE_CENTER} ± {SIFT_ATE_HALF_WIDTH}")
+        if run:
+            seconds.append(elapsed)
+            frontend.append(t_fe)
+    fps = sorted(N_FRAMES / s for s in seconds)
+    fe_ms = sorted(1e3 * f / N_FRAMES for f in frontend)
+    phase("sift-slice", f"SIFT EKF frames/s median "
+          f"{statistics.median(fps):.2f}, min {fps[0]:.2f}, max {fps[-1]:.2f} "
+          f"over {len(fps)} runs (frontend + run_slam, host clock around "
+          f"synchronize); frontend {statistics.median(fe_ms):.3f} ms per "
+          f"frame median ({fe_ms[0]:.3f}–{fe_ms[-1]:.3f}), "
+          f"{statistics.median(f / e for f, e in zip(frontend, seconds)):.2%}"
+          f" of the run")
+    return k1, k2
+
+
+def online_phase(images, gt):
+    """Phase 11: OnlineSlam (SIFT, K=64) frame by frame over the first 32
+    corridor frames, given as host arrays as a sensor delivers them,
+    against run_slam on the card under the same draws and the same
+    per-frame frontend calls; no host sync in process() after the
+    bootstrap. Then run() with chunks of 8 (process_chunk)."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig, StepDraws, run_slam
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.runtime.online import OnlineSlam
+    from pre3_tpu_torch.utils.interop import to_torch
+
+    n = ONLINE_FRAMES
+    cfg = SlamConfig(min_measured=50)  # __graft_entry__'s
+    intensity, xyz, conf = (a[:n] for a in images)
+    draws = to_torch(ekf_draws(n, cfg, ONLINE_LANDMARKS, seed=9, kf=SIFT_KF),
+                     "cuda")
+    slam = OnlineSlam(sr4000_camera(), cfg=cfg, n_landmarks=ONLINE_LANDMARKS,
+                      extractor="sift")
+    host_ms = []
+    for i in range(n):
+        step = draws if i == 0 else StepDraws(
+            *(None if d is None else d[i - 1] for d in draws.steps))
+        torch.cuda.set_sync_debug_mode("default" if i == 0 else "error")
+        t0 = time.perf_counter()
+        slam.process(intensity[i], xyz[i], conf[i], draws=step)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ts, qs = slam.trajectory
+    # the reference: run_slam fed the same per-frame frontend calls
+    frames = [[torch.as_tensor(a[i:i + 1], device="cuda")
+               for a in (intensity, np.nan_to_num(xyz), conf)]
+              for i in range(n)]
+    per_frame = [sift_features(f) for f in frames]
+    feats = type(per_frame[0])(*map(torch.cat, zip(*per_frame)))
+    ref = run_slam(sr4000_camera(), feats, cfg, n_landmarks=ONLINE_LANDMARKS,
+                   draws=draws, xyz_imgs=torch.as_tensor(
+                       np.nan_to_num(xyz), device="cuda"))
+    dt = float(np.abs(ts - ref.t.cpu().numpy()).max())
+    dq = float(np.abs(qs - ref.q.cpu().numpy()).max())
+    stats_equal = all(
+        bool(torch.equal(torch.stack([getattr(r.stats, f)
+                                      for r in slam.results[1:]]),
+                         getattr(ref.stats, f)))
+        for f in ref.stats._fields)
+    ate = ate_rmse(ts, gt[:n], align=False)
+    med = statistics.median(host_ms[1:])
+    phase("online", f"{n} frames, K={ONLINE_LANDMARKS}: process() host time "
+          f"per frame median {med:.2f} ms ({min(host_ms[1:]):.2f}–"
+          f"{max(host_ms[1:]):.2f}), bootstrap {host_ms[0]:.2f} ms, no host "
+          f"sync after it; vs run_slam: stats equal {stats_equal}, max |Δt| "
+          f"{dt:.3e} m, max |Δq| {dq:.3e} (tolerance {ONLINE_TOL}); ATE "
+          f"{ate:.4f} m")
+    if not stats_equal or dt > ONLINE_TOL or dq > ONLINE_TOL:
+        raise AssertionError("OnlineSlam and run_slam disagree on the card")
+
+    chunked = OnlineSlam(sr4000_camera(), cfg=cfg,
+                         n_landmarks=ONLINE_LANDMARKS, extractor="sift",
+                         generator=torch.Generator("cuda").manual_seed(2))
+    t0 = time.perf_counter()
+    frames = [type("Frame", (), dict(intensity=intensity[i], xyz=xyz[i],
+                                     confidence=conf[i])) for i in range(n)]
+    out = chunked.run(frames, chunk=ONLINE_CHUNK)
+    tc, _ = chunked.trajectory
+    elapsed = time.perf_counter() - t0
+    ate_c = ate_rmse(tc, gt[:n], align=False)
+    dispatches = chunked.timer.summary()["dispatch"]["count"]
+    phase("online", f"run(chunk={ONLINE_CHUNK}): {len(out)} steps in "
+          f"{dispatches} dispatches, {elapsed:.3f} s ({n / elapsed:.2f} "
+          f"frames/s, host clock around synchronize), ATE {ate_c:.4f} m")
+    if len(out) != n or dispatches != 1 + -(-(n - 1) // ONLINE_CHUNK) or (
+        not np.isfinite(tc).all()
+    ):
+        raise AssertionError("OnlineSlam.process_chunk run failed")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -723,35 +1016,56 @@ def main() -> None:
     phase("device", f"{kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; count {torch.cuda.device_count()}")
 
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        phase("time", f"{name}: {seconds[name]:.1f} s")
+        return out
+
     # ---- 2. build ----
-    build_kernels(["ransac_score", "match_stream"])
+    timed("build", build_kernels, ["ransac_score", "match_stream"])
 
     # ---- 3. kernels vs plain on the card ----
-    k1_err, k1_times = check_k1()
-    k2_err, k2_times = check_k2()
+    k1_err, k1_times = timed("kernel K1", check_k1)
+    k2_err, k2_times = timed("kernel K2", check_k2)
 
     # ---- 4./5. VO slice ----
-    im, gt = vo_phases()
+    images, im, gt = timed("parity + slice (VO)", vo_phases)
 
-    # ---- 6./7. EKF slice ----
-    ekf_parity()
-    k1, k2 = ekf_slice(im, gt)
-    phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # ---- 6.–8. EKF slice, FAST features ----
+    timed("ekf-parity", ekf_parity)
+    timed("ekf-options iekf", ekf_parity, "ekf-options", est_method="iekf")
+    timed("ekf-options heading", ekf_parity, "ekf-options",
+          heading_update_every=4)
+    timed("ekf-slice", ekf_slice, im, gt)
 
-    # times at the EKF step's shapes, whose run gave the launch counts;
-    # "ms" is the graph-replayed device time
-    k1_t, k2_t = k1_times["512x256"], k2_times["256x256-d121"]
+    # ---- 9.–11. the flagship: SIFT → run_slam, and OnlineSlam ----
+    timed("sift-parity", sift_parity)
+    k1, k2 = timed("sift-slice", sift_slice, im, gt)
+    timed("online", online_phase, images, gt)
+    phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
+          f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
+    # times at the SIFT headline's shapes, whose run gave the launch
+    # counts; "ms" is the graph-replayed device time. K2 runs at 288×288
+    # (VO) and 256×288 (map matching), once each per step.
+    k1_t = k1_times["512x288"]
+    k2_vo, k2_map = k2_times["288x288-d128"], k2_times["256x288-d128"]
     print(json.dumps({"kernels": [
         {"name": "ransac_score", "route": "cuda",
          "source": "pre3_tpu_torch/csrc/ransac_score.cu",
          "replaces": "pre3_tpu/ops/ransac_score.py:45",
-         "shape": "B=512, N=256", "launches": k1, "max_abs_err": k1_err,
+         "shape": "B=512, N=288", "launches": k1, "max_abs_err": k1_err,
          "ms": k1_t["device_ms"], **k1_t},
         {"name": "match_stream", "route": "cuda",
          "source": "pre3_tpu_torch/csrc/match_stream.cu",
          "replaces": "pre3_tpu/ops/matching.py:105",
-         "shape": "N1=N2=256, D=121", "launches": k2, "max_abs_err": k2_err,
-         "ms": k2_t["device_ms"], **k2_t},
+         "shape": "N1=N2=288, D=128 (VO; half the launches)",
+         "launches": k2, "max_abs_err": k2_err, "ms": k2_vo["device_ms"],
+         **k2_vo, "map_match": {"shape": "N1=256, N2=288, D=128", **k2_map}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,15 +10,20 @@ Package layout (ported so far):
   data/      SR4000 Frame + synthetic scene renderer (numpy copies)
   eval/      ATE/RPE metrics (numpy copy)
   geometry/  quaternion, SE(3), camera model, inverse-depth landmarks
-  frontend/  FAST detector, patch descriptors, depth lift, pipeline
+  frontend/  FAST detector, patch descriptors, scale space, SIFT, depth
+             lift, pipeline
   ops/       3×3 SVD, small Cholesky, descriptor matching (CUDA kernel
              K2), RANSAC scoring (CUDA kernel K1)
   vo/        rigid fits, batched RANSAC, dead-reckoning VO, IFT covariance
-  ekf/       EKF-SLAM: state, prediction, measurement, update, 1-point
-             RANSAC, map management, slam_step / run_slam
-  backend/   floor-plane fit (the EKF's orientation prior)
+  ekf/       EKF-SLAM: state, prediction, measurement, updates (Kalman,
+             iterated, attitude), 1-point RANSAC, map management,
+             slam_step / run_slam
+  backend/   floor-plane fit (the EKF's orientation prior and attitude
+             update)
+  runtime/   OnlineSlam, the frame-by-frame streaming driver
   utils/     numpy ↔ torch interop with the reference's NamedTuples,
-             stable top-k, nvcc build, async host constants
+             stable top-k, nvcc build, async host constants, checkpoints,
+             stage timing and profiler traces, chip tools
 """
 
 import torch as _torch

@@ -9,13 +9,19 @@ Port of ``pre3_tpu/ekf/slam.py``. Per frame k:
   5. bookkeeping counters
   6. map management: delete / convert / add
 
+Estimation methods: 1PRE (above), ``pure_ekf`` (one update on every IC
+match) and ``iekf`` (iterated update on every IC match); an optional
+periodic gravity-direction update from a floor-plane fit closes the step.
+
 The reference's ``lax.scan`` is a Python loop that never reads a value
-back to the host, and its ``lax.cond`` a ``torch.where`` over both
-branches. JAX's threefry draws cannot be reproduced in torch, so every
-random draw is an input (``draws=``) or comes from a ``torch.Generator``.
-Options whose modules are not ported raise ``NotImplementedError``:
-``matcher="ncc_warp"``, ``est_method="iekf"``, ``heading_update_every>0``
-and per-frame intensity images.
+back to the host. Its ``lax.cond`` on VO success is a ``torch.where``
+over both branches; its ``lax.cond`` on the step number (the periodic
+attitude update) is decided from the loop's host-side index, so the
+512-hypothesis plane fit runs on 1 step in N only. JAX's threefry draws
+cannot be reproduced in torch, so every random draw is an input
+(``draws=``) or comes from a ``torch.Generator``. The warped-patch NCC
+matcher (``matcher="ncc_warp"``, per-frame intensity images) is not
+ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
-from pre3_tpu_torch.backend.plane_fit import initial_orientation_from_floor
+from pre3_tpu_torch.backend.plane_fit import (
+    floor_up_direction, initial_orientation_from_floor,
+)
 from pre3_tpu_torch.ekf.map_management import (
     add_features, convert_to_cartesian, delete_features,
 )
@@ -37,7 +45,9 @@ from pre3_tpu_torch.ekf.one_point_ransac import (
 )
 from pre3_tpu_torch.ekf.prediction import _PN, predict, predict_cv
 from pre3_tpu_torch.ekf.state import CAM_DIM, EkfState, init_state
-from pre3_tpu_torch.ekf.update import kalman_update
+from pre3_tpu_torch.ekf.update import (
+    attitude_update, iterated_kalman_update, kalman_update,
+)
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.quaternion import q2v, qrotate, v2q
@@ -56,7 +66,7 @@ class SlamConfig(NamedTuple):
     match_ratio: float = 1.5  # Lowe ratio (siftmatch.c default)
     max_adds: int = 8
     min_measured: int = 25  # re-init support target
-    est_method: str = "1pre"  # "1pre" | "pure_ekf" ("iekf": not ported)
+    est_method: str = "1pre"  # "1pre" | "pure_ekf" | "iekf"
     matcher: str = "desc"  # "desc" ("ncc_warp": not ported)
     ncc_threshold: float = 0.60
     only_predict: bool = False  # dead-reckon, no update
@@ -66,7 +76,8 @@ class SlamConfig(NamedTuple):
     vo_noise_from_covariance: bool = True  # IFT VO covariance as noise
     vo_range_weighted: bool = True  # 1/range² weights in the VO refit
     initial_orientation: bool = True  # plane-fit q0 from frame 0's xyz
-    heading_update_every: int = 0  # periodic attitude update (not ported)
+    heading_update_every: int = 0  # every N steps, attitude update from a
+    # floor-plane fit (needs per-frame xyz images); 0 = off
     motion_model: str = "odometry"  # "odometry" | "odo_cv_fallback" | "cv"
     dt: float = 0.1  # sensor period
     std_a: float = 0.1  # linear acceleration noise
@@ -103,11 +114,15 @@ class StepRecord(NamedTuple):
 
 class StepDraws(NamedTuple):
     """One step's random draws (standard Gumbel noise); a None field is
-    drawn from the generator instead."""
+    drawn from the generator instead. Stacked for a sequence, the first
+    three fields have a leading step axis and ``heading`` one entry per
+    step that runs the plane fit, in order."""
 
     vo: torch.Tensor | None = None  # [vo_batch, Kf] VO RANSAC sampling
     ransac: torch.Tensor | None = None  # [ransac_batch, M] 1-PRE sampling
     add: torch.Tensor | None = None  # [Kf] add sampling ("weighted" only)
+    heading: torch.Tensor | None = None  # [512, N_region] floor-plane
+    # RANSAC of the periodic attitude update (its steps only)
 
 
 class SlamDraws(NamedTuple):
@@ -133,14 +148,6 @@ def check_supported(cfg: SlamConfig, images=None) -> None:
             "the warped-patch NCC matcher (matcher='ncc_warp', per-frame "
             "images; pre3_tpu/ekf/ncc_matching.py) is not ported to "
             "pre3_tpu_torch yet")
-    if cfg.est_method == "iekf":
-        raise NotImplementedError(
-            "est_method='iekf' (iterated_kalman_update, pre3_tpu/ekf/"
-            "update.py) is not ported to pre3_tpu_torch yet")
-    if cfg.heading_update_every > 0:
-        raise NotImplementedError(
-            "heading_update_every > 0 (attitude_update, pre3_tpu/ekf/"
-            "update.py) is not ported to pre3_tpu_torch yet")
 
 
 def _where_state(cond: torch.Tensor, a: EkfState, b: EkfState) -> EkfState:
@@ -158,12 +165,19 @@ def slam_step(
     draws: StepDraws | None = None,
     generator: torch.Generator | None = None,
     image: torch.Tensor | None = None,
-    xyz_img: torch.Tensor | None = None,
+    xyz_img: torch.Tensor | None = None,  # [H, W, 3]
+    host_step: int | None = None,
 ) -> tuple[EkfState, tuple[StepStats, StepRecord]]:
     """One EKF-SLAM step. ``draws`` supplies the step's Gumbel noise;
-    fields it leaves None are drawn from ``generator``. ``xyz_img`` is
-    used only by the (not ported) heading update."""
+    fields it leaves None are drawn from ``generator``. With
+    cfg.heading_update_every = N > 0 the step needs its xyz image and
+    ``host_step``, its index as a host integer (``step`` lives on the
+    device): where host_step % N == 0 the floor plane is fitted and the
+    attitude update applied."""
     check_supported(cfg, image)
+    if cfg.heading_update_every > 0 and (xyz_img is None or host_step is None):
+        raise ValueError("heading_update_every > 0 needs per-frame xyz "
+                         "images and the step's host index (host_step)")
     draws = StepDraws() if draws is None else draws
     dev, dt = state.x.device, state.x.dtype
 
@@ -227,6 +241,11 @@ def slam_step(
         # one update on every IC match, no RANSAC gating
         li, hi = obs.ic, none
         state = kalman_update(state, obs, li, std_z=cfg.std_z, max_slots=ms)
+    elif cfg.est_method == "iekf":
+        # iterated EKF on every IC match, relinearized at each iterate
+        li, hi = obs.ic, none
+        state = iterated_kalman_update(cam_model, state, obs.z, li,
+                                       std_z=cfg.std_z)
     else:
         # 1PRE: li update on the prior, then hi rescue on the posterior
         li = one_point_ransac(
@@ -262,6 +281,15 @@ def slam_step(
         depth_range_d0=cfg.depth_range_d0, sampling=cfg.init_sampling,
         gumbel=draws.add, generator=generator,
     )
+
+    # periodic gravity-direction correction from a floor-plane fit, on the
+    # steps the host index selects
+    if cfg.heading_update_every > 0 and (
+        host_step % cfg.heading_update_every == 0
+    ):
+        fit = floor_up_direction(torch.nan_to_num(xyz_img),
+                                 gumbel=draws.heading, generator=generator)
+        state = attitude_update(state, fit.normal, ok=fit.ok)
 
     n_li = torch.sum(li, dtype=torch.int32)
     n_hi = torch.sum(hi, dtype=torch.int32)
@@ -326,20 +354,35 @@ def scan_steps(
     feats: Features,  # stacked chunk, leading axis C
     steps: torch.Tensor,  # [C] int32 global step indices
     cfg: SlamConfig = SlamConfig(),
-    draws: StepDraws | None = None,  # fields with leading axis C
+    draws: StepDraws | None = None,  # stacked, see StepDraws
     generator: torch.Generator | None = None,
+    xyz_imgs: torch.Tensor | None = None,  # [C, H, W, 3]
+    first_step: int | None = None,  # host index of steps[0]
 ):
     """Run slam_step over a feature chunk; resumable (returns the carry).
     Returns (state, (t [C, 3], q [C, 4], stats, records))."""
     ts, qs, stats, records = [], [], [], []
     prev = prev_last
+    n_fits = 0  # draws.heading entries used so far
     for i in range(feats.uv.shape[0]):
         cur = _frame(feats, i)
-        step_draws = None if draws is None else StepDraws(
-            *(None if d is None else d[i] for d in draws))
-        state, (st, rec) = slam_step(cam_model, state, cur, prev, steps[i],
-                                     cfg, draws=step_draws,
-                                     generator=generator)
+        host = None if first_step is None else first_step + i
+        fits = host is not None and cfg.heading_update_every > 0 and (
+            host % cfg.heading_update_every == 0)
+        step_draws = None
+        if draws is not None:
+            pick = lambda d: None if d is None else d[i]  # noqa: E731
+            step_draws = StepDraws(
+                vo=pick(draws.vo), ransac=pick(draws.ransac),
+                add=pick(draws.add),
+                heading=(draws.heading[n_fits] if fits
+                         and draws.heading is not None else None))
+        n_fits += fits
+        state, (st, rec) = slam_step(
+            cam_model, state, cur, prev, steps[i], cfg, draws=step_draws,
+            generator=generator,
+            xyz_img=None if xyz_imgs is None else xyz_imgs[i],
+            host_step=host)
         ts.append(state.x[0:3])
         qs.append(state.x[3:7])
         stats.append(st)
@@ -378,6 +421,7 @@ def run_slam(
     _, (ts, qs, stats, records) = scan_steps(
         cam_model, state0, first, rest, steps, cfg, draws=draws.steps,
         generator=generator,
+        xyz_imgs=None if xyz_imgs is None else xyz_imgs[1:], first_step=1,
     )
     return SlamTrajectory(
         t=torch.cat([torch.zeros((1, 3), dtype=ts.dtype, device=dev), ts]),

@@ -70,7 +70,7 @@ def init_state(
     std_w0: float = 0.025,
     patch_big: int = 21,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> EkfState:
     """x₀/P₀: zero pose (optionally the plane-fit orientation prior q0),
     eps on the pose covariance, 0.025² on the velocity covariances.

@@ -1,21 +1,22 @@
-"""EKF update: masked batch Kalman update + quaternion renorm.
+"""EKF updates: masked batch Kalman update, heading and attitude
+observations, the iterated update, and the quaternion renorm.
 
-Port of ``kalman_update`` and ``renormalize_quaternion`` of
-``pre3_tpu/ekf/update.py``. Excluded measurements are zero-padded: zero H
-rows and zero innovation with unit R make a measurement an exact no-op,
-so the [2K, D] system has a static shape. The reference's
-``heading_update``, ``attitude_update`` and ``iterated_kalman_update`` are
-not on the ported path (ekf/slam.py raises for their options).
+Port of ``pre3_tpu/ekf/update.py``. Excluded measurements are
+zero-padded: zero H rows and zero innovation with unit R make a
+measurement an exact no-op, so the [2K, D] system has a static shape.
+Linear solves use the ``_ex`` forms, whose status stays on the device.
 """
 
 from __future__ import annotations
 
-import torch
-from torch.func import jacfwd
+import math
 
-from pre3_tpu_torch.ekf.measurement import Observations
+import torch
+from torch.func import grad, jacfwd
+
+from pre3_tpu_torch.ekf.measurement import Observations, predict_measurements
 from pre3_tpu_torch.ekf.state import CAM_DIM, LM_DIM, EkfState
-from pre3_tpu_torch.geometry.quaternion import qnormalize
+from pre3_tpu_torch.geometry.quaternion import q2e, qconj, qnormalize, qrotate
 from pre3_tpu_torch.utils.topk import stable_topk
 
 
@@ -87,6 +88,113 @@ def kalman_update(
     p_new = state.p - y.T @ y
     p_new = 0.5 * (p_new + p_new.T)
     x_new, p_new = renormalize_quaternion(x_new, p_new)
+    return state._replace(x=x_new, p=p_new)
+
+
+def assemble_h(obs: Observations, use: torch.Tensor) -> torch.Tensor:
+    """Dense stacked H [K·2, D] with rows zeroed outside ``use``: landmark
+    j's block sits at the static column of slot j."""
+    k = obs.h.shape[0]
+    hc = torch.where(use[:, None, None], obs.hc, 0.0)  # [K, 2, 13]
+    hl = torch.where(use[:, None, None], obs.hl, 0.0)  # [K, 2, 6]
+    eye = torch.eye(k, dtype=hl.dtype, device=hl.device)
+    hlm = hl[:, :, None, :] * eye[:, None, :, None]  # [K, 2, K, 6]
+    h = torch.cat([hc, hlm.reshape(k, 2, k * LM_DIM)], dim=-1)
+    return h.reshape(k * 2, CAM_DIM + k * LM_DIM)
+
+
+def heading_update(
+    state: EkfState,
+    z_heading: torch.Tensor,  # [] observed yaw, radians
+    std_heading: float = 0.0349,  # ≈2°
+) -> EkfState:
+    """Scalar heading (yaw) observation update; the innovation is wrapped
+    to (−π, π]. H is the gradient of the state's yaw."""
+
+    def h_of(x):
+        return q2e(x[3:7])[2]
+
+    h = h_of(state.x)
+    hrow = grad(h_of)(state.x)[None, :]  # [1, D]
+    nu = torch.remainder(z_heading - h + math.pi, 2 * math.pi) - math.pi
+    s = (hrow @ state.p @ hrow.T)[0, 0] + std_heading**2
+    kgain = (state.p @ hrow.T)[:, 0] / s  # [D]
+    x_new = state.x + kgain * nu
+    p_new = state.p - s * torch.outer(kgain, kgain)
+    p_new = 0.5 * (p_new + p_new.T)
+    x_new, p_new = renormalize_quaternion(x_new, p_new)
+    return state._replace(x=x_new, p=p_new)
+
+
+def attitude_update(
+    state: EkfState,
+    up_cam: torch.Tensor,  # [3] observed camera-frame 'up' (floor normal)
+    ok: torch.Tensor | bool = True,  # [] observation validity gate
+    std_up: float = 0.0175,  # ≈1° direction noise
+    max_angle_deg: float = 4.0,
+) -> EkfState:
+    """Gravity-direction observation update from a floor-plane fit: the
+    observed camera-frame up axis against the one predicted from the
+    filter's orientation. An innovation beyond max_angle_deg (or ok
+    false) leaves the state as it was — selected on the device, no host
+    branch."""
+    dev, dt = state.x.device, state.x.dtype
+    up_world = torch.zeros(3, dtype=dt, device=dev)
+    up_world[1].fill_(-1.0)  # y-down convention
+
+    def h_of(q):
+        return qrotate(qconj(q), up_world)
+
+    q = state.x[3:7]
+    h = h_of(q)
+    jq = jacfwd(h_of)(q)  # [3, 4]
+    d = state.x.shape[0]
+    hrow = torch.zeros((3, d), dtype=dt, device=dev)
+    hrow[:, 3:7] = jq
+    z = up_cam / torch.clamp(torch.linalg.vector_norm(up_cam), min=1e-9)
+    nu = z - h
+    angle = torch.arccos(torch.clamp(torch.dot(z, h), -1.0, 1.0))
+    gate = angle < math.radians(max_angle_deg)
+
+    s = hrow @ state.p @ hrow.T + (std_up**2) * torch.eye(
+        3, dtype=dt, device=dev)
+    kgain = torch.linalg.solve_ex(s, hrow @ state.p)[0].T  # [D, 3]
+    x_new = state.x + kgain @ nu
+    p_new = state.p - kgain @ s @ kgain.T
+    p_new = 0.5 * (p_new + p_new.T)
+    x_new, p_new = renormalize_quaternion(x_new, p_new)
+    apply = gate & ok
+    return state._replace(x=torch.where(apply, x_new, state.x),
+                          p=torch.where(apply, p_new, state.p))
+
+
+def iterated_kalman_update(
+    cam_model,
+    state: EkfState,
+    z: torch.Tensor,  # [K, 2] measurements
+    use: torch.Tensor,  # [K] bool
+    n_iters: int = 3,
+    std_z: float = 1.0,
+) -> EkfState:
+    """Iterated EKF update: h and H re-linearized at the running posterior
+    mean, x_{j+1} = x̂ + K_j (ν_j − H_j (x̂ − x_j)); the covariance from
+    the last linearization. Dense [2K, D] H, as the reference."""
+    x_prior, p_prior = state.x, state.p
+    st_j = state
+    for _ in range(n_iters):
+        obs_j = predict_measurements(cam_model, st_j, std_z=std_z)
+        h = assemble_h(obs_j, use)  # [2K, D]
+        nu = torch.where(use[:, None], z - obs_j.h, 0.0).reshape(-1)
+        k2 = h.shape[0]
+        r = (std_z**2) * torch.eye(k2, dtype=h.dtype, device=h.device)
+        ph_t = p_prior @ h.T
+        s = h @ ph_t + r
+        kt = torch.linalg.solve_ex(s, ph_t.T)[0]  # [2K, D]
+        dx = kt.T @ (nu - h @ (x_prior - st_j.x))
+        st_j = st_j._replace(x=x_prior + dx)
+    p_new = p_prior - kt.T @ s @ kt
+    p_new = 0.5 * (p_new + p_new.T)
+    x_new, p_new = renormalize_quaternion(st_j.x, p_new)
     return state._replace(x=x_new, p=p_new)
 
 

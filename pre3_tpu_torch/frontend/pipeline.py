@@ -1,6 +1,7 @@
 """Frontend pipeline: detect → describe → depth-lift, batched over frames.
 
-Port of ``pre3_tpu/frontend/pipeline.py::extract_features``. The reference
+Port of ``pre3_tpu/frontend/pipeline.py`` (``extract_features``, FAST +
+patches, and ``extract_features_sift``). The reference
 extracts one frame per call and is vmapped by its callers; here the frame
 axis is explicit, so a whole sequence's frontend is one batch of launches.
 """
@@ -14,6 +15,7 @@ import torch
 from pre3_tpu_torch.frontend.depth_lift import lift
 from pre3_tpu_torch.frontend.fast import detect
 from pre3_tpu_torch.frontend.patches import extract_patch_descriptors
+from pre3_tpu_torch.frontend.sift import extract_sift
 
 
 class Features(NamedTuple):
@@ -36,14 +38,7 @@ def extract_features(
 ) -> Features:
     """FAST + patch descriptors + depth lift for F frames at once; every
     field of the result has the leading frame axis F."""
-    if intensity.dim() != 3 or xyz.shape != (*intensity.shape, 3) or (
-        confidence.shape != intensity.shape
-    ):
-        raise ValueError(
-            "extract_features takes intensity [F, H, W], xyz [F, H, W, 3] "
-            f"and confidence [F, H, W]; got {tuple(intensity.shape)}, "
-            f"{tuple(xyz.shape)}, {tuple(confidence.shape)}"
-        )
+    _check_frames("extract_features", intensity, xyz, confidence)
     corners = detect(intensity, threshold=threshold, max_corners=max_features)
     desc = extract_patch_descriptors(intensity, corners.uv, patch=patch)
     lifted = lift(corners.uv, corners.valid, torch.nan_to_num(xyz), confidence)
@@ -51,3 +46,35 @@ def extract_features(
         uv=corners.uv, desc=desc, xyz=lifted.xyz, valid=lifted.valid,
         score=corners.score,
     )
+
+
+def extract_features_sift(
+    intensity: torch.Tensor,  # [F, H, W] float
+    xyz: torch.Tensor,  # [F, H, W, 3], NaNs allowed
+    confidence: torch.Tensor,  # [F, H, W]
+    n_octaves: int = 3,
+    keypoints_per_octave: int = 96,
+    peak_thresh: float = 0.004,
+    upright: bool = True,
+) -> Features:
+    """SIFT variant of the frontend (the reference's primary extractor):
+    DoG keypoints + 128-D descriptors + depth lift for F frames at once,
+    K = n_octaves·keypoints_per_octave per frame (288 by default)."""
+    _check_frames("extract_features_sift", intensity, xyz, confidence)
+    f = extract_sift(intensity, n_octaves=n_octaves,
+                     keypoints_per_octave=keypoints_per_octave,
+                     peak_thresh=peak_thresh, upright=upright)
+    lifted = lift(f.uv, f.valid, torch.nan_to_num(xyz), confidence)
+    return Features(uv=f.uv, desc=f.desc, xyz=lifted.xyz, valid=lifted.valid,
+                    score=f.score)
+
+
+def _check_frames(name, intensity, xyz, confidence) -> None:
+    if intensity.dim() != 3 or xyz.shape != (*intensity.shape, 3) or (
+        confidence.shape != intensity.shape
+    ):
+        raise ValueError(
+            f"{name} takes intensity [F, H, W], xyz [F, H, W, 3] and "
+            f"confidence [F, H, W]; got {tuple(intensity.shape)}, "
+            f"{tuple(xyz.shape)}, {tuple(confidence.shape)}"
+        )

@@ -5,8 +5,9 @@ draws, poses, the EKF state and trajectories. These helpers turn the JAX
 package's NamedTuples, given as numpy arrays (``Features``, ``Matches``,
 ``Pose``, ``Trajectory``, ``VoStep``, ``RigidFit``, ``RansacResult``,
 ``EkfState``, ``Observations``, ``StepStats``, ``StepRecord``,
-``SlamTrajectory``, ``Camera``), into the port's NamedTuples of tensors on
-a given device, and back into numpy. Matching is by type name and fields,
+``SlamTrajectory``, ``Camera``, ``SiftFeatures``), into the port's
+NamedTuples of tensors on a given device (the card unless the caller
+names another), and back into numpy. Matching is by type name and fields,
 so this module imports nothing of the JAX package. A ``Camera`` keeps its
 intrinsics as Python numbers on the port's side.
 """
@@ -22,6 +23,7 @@ from pre3_tpu_torch.ekf.measurement import Observations
 from pre3_tpu_torch.ekf.slam import SlamTrajectory, StepRecord, StepStats
 from pre3_tpu_torch.ekf.state import EkfState
 from pre3_tpu_torch.frontend.pipeline import Features
+from pre3_tpu_torch.frontend.sift import SiftFeatures
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.se3 import Pose
 from pre3_tpu_torch.ops.matching import Matches
@@ -33,7 +35,7 @@ _PORT_TYPES: dict[tuple[str, tuple[str, ...]], type] = {
     (cls.__name__, cls._fields): cls
     for cls in (Features, Matches, Pose, Trajectory, VoStep, RansacResult,
                 RigidFit, EkfState, Observations, StepStats, StepRecord,
-                SlamTrajectory, Camera)
+                SlamTrajectory, Camera, SiftFeatures)
 }
 
 
@@ -41,7 +43,7 @@ def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def to_torch(value: Any, device: torch.device | str = "cpu") -> Any:
+def to_torch(value: Any, device: torch.device | str = "cuda") -> Any:
     """numpy arrays (or NamedTuples of them) → tensors on ``device``.
 
     A NamedTuple becomes the port's type of the same name and fields; any

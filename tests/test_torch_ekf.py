@@ -217,7 +217,8 @@ def test_init_state_matches_jax():
         ref = _np(jinit_state(n_landmarks=5, desc_dim=7,
                               q0=None if q is None else jnp.asarray(q)))
         got = tinit_state(n_landmarks=5, desc_dim=7,
-                          q0=None if q is None else torch.as_tensor(q))
+                          q0=None if q is None else torch.as_tensor(q),
+                          device="cpu")
         _close(got, ref, atol=0.0)
 
 
@@ -233,7 +234,7 @@ def test_predict_matches_jax(case):
     """Odometry and constant-velocity predictions from the reference's
     bootstrapped state: x within 1e-6, P within 1e-9 absolute (entries
     ≤ 1e-3)."""
-    st0 = to_torch(case["st0"])
+    st0 = to_torch(case["st0"], device="cpu")
     jst0 = jax.tree.map(jnp.asarray, case["st0"])
     u = case["u"]
     _close(tpred.predict(st0, torch.as_tensor(u)),
@@ -262,7 +263,8 @@ def test_predict_measurements_matches_jax(case):
     st1 = case["st1"]
     ref = _np(_jit(jmeas.predict_measurements, JCAM)(
         jax.tree.map(jnp.asarray, st1)))
-    got = to_numpy(tmeas.predict_measurements(TCAM, to_torch(st1)))
+    got = to_numpy(tmeas.predict_measurements(
+        TCAM, to_torch(st1, device="cpu")))
     np.testing.assert_array_equal(got.visible, ref.visible)
     act = st1.active
     assert act.sum() > 10
@@ -284,9 +286,10 @@ def test_search_ic_matches_matches_jax(case, gate_first):
     ref_obs, ref_st = _np(_jit(
         jmeas.search_ic_matches, ratio=1.3, gate_first=gate_first)(
         jobs, jst, jax.tree.map(jnp.asarray, frame)))
-    tobs = to_torch(_np(jobs))
+    tobs = to_torch(_np(jobs), device="cpu")
     got_obs, got_st = tmeas.search_ic_matches(
-        tobs, to_torch(st1), to_torch(frame), ratio=1.3,
+        tobs, to_torch(st1, device="cpu"), to_torch(frame, device="cpu"),
+        ratio=1.3,
         gate_first=gate_first)
     _close(got_obs, ref_obs, atol=0.0, fields=("ic", "z", "z_xyz"))
     _close(got_st, ref_st, atol=0.0, fields=("desc",))
@@ -311,7 +314,8 @@ def test_kalman_update_matches_jax(case, max_slots):
     ref = _np(_jit(jupd.kalman_update, max_slots=max_slots)(
         jax.tree.map(jnp.asarray, st1), jax.tree.map(jnp.asarray, obs),
         jnp.asarray(use)))
-    got = tupd.kalman_update(to_torch(st1), to_torch(obs),
+    got = tupd.kalman_update(to_torch(st1, device="cpu"),
+                             to_torch(obs, device="cpu"),
                              torch.as_tensor(use), max_slots=max_slots)
     _close(got, ref, atol=2e-6, fields=("x",))
     _close(got, ref, atol=1e-8, fields=("p",))
@@ -325,7 +329,8 @@ def test_kalman_update_overflowing_bound_matches_jax(case):
     ref = _np(_jit(jupd.kalman_update, max_slots=6)(
         jax.tree.map(jnp.asarray, st1), jax.tree.map(jnp.asarray, obs),
         jnp.asarray(obs.ic)))
-    got = tupd.kalman_update(to_torch(st1), to_torch(obs),
+    got = tupd.kalman_update(to_torch(st1, device="cpu"),
+                             to_torch(obs, device="cpu"),
                              torch.as_tensor(obs.ic), max_slots=6)
     _close(got, ref, atol=2e-6, fields=("x",))
     _close(got, ref, atol=1e-8, fields=("p",))
@@ -348,7 +353,8 @@ def test_one_point_ransac_matches_jax(case, n_points, max_slots):
         k, JCAM, s, o, batch=64, n_points=n_points, max_slots=max_slots))(
         key, jst, jobs))
     m = topr.pool_size(K, max_slots)
-    got = topr.one_point_ransac(TCAM, to_torch(st1), to_torch(obs), batch=64,
+    got = topr.one_point_ransac(TCAM, to_torch(st1, device="cpu"),
+                                to_torch(obs, device="cpu"), batch=64,
                                 n_points=n_points, max_slots=max_slots,
                                 gumbel=_gumbel(key, (64, m)))
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -356,13 +362,15 @@ def test_one_point_ransac_matches_jax(case, n_points, max_slots):
     jpost = _jit(jupd.kalman_update)(jst, jobs, jnp.asarray(ref))
     ref_hi, _ = _jit(jopr.rescue_hi_inliers, JCAM)(jpost, jobs,
                                                    jnp.asarray(ref))
-    got_hi, _ = topr.rescue_hi_inliers(TCAM, to_torch(_np(jpost)),
-                                       to_torch(obs), got)
+    got_hi, _ = topr.rescue_hi_inliers(TCAM,
+                                       to_torch(_np(jpost), device="cpu"),
+                                       to_torch(obs, device="cpu"), got)
     np.testing.assert_array_equal(got_hi.numpy(), np.asarray(ref_hi))
 
 
 def test_one_point_ransac_noise_sources(case):
-    st1, obs = to_torch(case["st1"]), to_torch(case["obs"])
+    st1 = to_torch(case["st1"], device="cpu")
+    obs = to_torch(case["obs"], device="cpu")
     li = topr.one_point_ransac(TCAM, st1, obs, batch=32,
                                generator=torch.Generator().manual_seed(0))
     assert li.dtype == torch.bool and int(li.sum()) > 5
@@ -394,14 +402,16 @@ def test_delete_and_convert_match_jax(case):
     for kw in (dict(), dict(max_age=38, max_invisible=15)):
         ref = _np(_jit(jmm.delete_features, **kw)(
             jax.tree.map(jnp.asarray, aged), jnp.asarray(step)))
-        got = tmm.delete_features(to_torch(aged), torch.as_tensor(step), **kw)
+        got = tmm.delete_features(to_torch(aged, device="cpu"),
+                                  torch.as_tensor(step), **kw)
         _close(got, ref, atol=0.0)
     # a tight map makes the linearity test pass for the near landmarks
     tight = st._replace(p=(st.p * 1e-4).astype(np.float32))
     for thr, mc in ((0.1, 16), (10.0, 3)):
         ref = _np(_jit(jmm.convert_to_cartesian, threshold=thr,
                        max_conversions=mc)(jax.tree.map(jnp.asarray, tight)))
-        got = tmm.convert_to_cartesian(to_torch(tight), threshold=thr,
+        got = tmm.convert_to_cartesian(to_torch(tight, device="cpu"),
+                                       threshold=thr,
                                        max_conversions=mc)
         _close(got, ref, atol=1e-6, rtol=1e-6, fields=("x", "is_id"))
         _close(got, ref, atol=1e-9, fields=("p",))
@@ -430,7 +440,8 @@ def test_add_features_matches_jax(case, sampling, max_adds, quad):
                                                   **kw))(
         jst, jax.tree.map(jnp.asarray, frame), jnp.asarray(obs.h),
         jnp.asarray(step), jnp.asarray(n_meas), key))
-    got = tmm.add_features(TCAM, to_torch(_np(jst)), to_torch(frame),
+    got = tmm.add_features(TCAM, to_torch(_np(jst), device="cpu"),
+                           to_torch(frame, device="cpu"),
                            torch.as_tensor(obs.h), torch.as_tensor(step),
                            torch.as_tensor(n_meas),
                            gumbel=_gumbel(key, (KF,)), **kw)
@@ -498,13 +509,13 @@ def test_ekf_state_and_camera_round_trip(case):
     """A reference EkfState and Camera → the port's types → numpy,
     unchanged; the camera's intrinsics become Python numbers."""
     st = case["st1"]
-    tst = to_torch(st)
+    tst = to_torch(st, device="cpu")
     assert type(tst) is EkfState and tst.p.dtype == torch.float32
     back = to_numpy(tst)
     for name in st._fields:
         np.testing.assert_array_equal(getattr(back, name), getattr(st, name))
     assert type(st)(*back)._fields == st._fields
-    cam = to_torch(JCAM)
+    cam = to_torch(JCAM, device="cpu")
     assert cam == TCAM and isinstance(cam.f, float)
     assert isinstance(cam.n_rows, int)
     jback = type(JCAM)(*to_numpy(cam))

@@ -1,7 +1,9 @@
 """The EKF-SLAM slice end to end, port vs JAX reference: one slam_step
-under several configurations, and a 10-frame run_slam with the
-plane-fit orientation prior, each with the reference's random draws
-reproduced from its keys and injected into the port.
+under several configurations (the iterated update and the periodic
+attitude update among them), a 10-frame run_slam with the plane-fit
+orientation prior, and a SIFT-fed run_slam with the periodic attitude
+update, each with the reference's random draws reproduced from its keys
+and injected into the port.
 
 The reference's run_slam is one jitted program; it is compiled once, in
 a module fixture, and every test of the sequence reuses its result.
@@ -18,6 +20,7 @@ import torch
 from pre3_tpu.data.synthetic import render_sequence
 from pre3_tpu.ekf import slam as jslam
 from pre3_tpu.frontend.pipeline import extract_features as jextract
+from pre3_tpu.frontend.pipeline import extract_features_sift as jextract_sift
 from pre3_tpu.geometry.camera import sr4000_camera as jcamera
 from pre3_tpu_torch.ekf import slam as tslam
 from pre3_tpu_torch.ekf.one_point_ransac import pool_size
@@ -42,28 +45,37 @@ def _gumbel(key, shape):
     return torch.as_tensor(np.array(jax.random.gumbel(key, shape)))
 
 
-def _step_draws(key, cfg):
+def _step_draws(key, cfg, heading=False, kf=KF):
     """The reference's draws of one slam_step (split(key, 3) → VO,
-    1-PRE, add sampling)."""
+    1-PRE, add sampling; fold_in(key, 7) → the attitude update's plane
+    fit, where ``heading``)."""
     kv, kr, ka = jax.random.split(key, 3)
     m = pool_size(K, cfg.max_update_slots or None)
-    return tslam.StepDraws(vo=_gumbel(kv, (cfg.vo_batch, KF)),
-                           ransac=_gumbel(kr, (cfg.ransac_batch, m)),
-                           add=_gumbel(ka, (KF,)))
+    return tslam.StepDraws(
+        vo=_gumbel(kv, (cfg.vo_batch, kf)),
+        ransac=_gumbel(kr, (cfg.ransac_batch, m)), add=_gumbel(ka, (kf,)),
+        heading=_gumbel(jax.random.fold_in(key, 7), (PLANE_BATCH, N_REGION))
+        if heading else None)
 
 
-def _run_draws(key, cfg, n_frames, with_plane):
+def _run_draws(key, cfg, n_frames, with_plane, kf=KF):
     """The reference's draws of run_slam: bootstrap (plane fit, add
-    sampling) and every step's, from its key splits."""
+    sampling) and every step's, from its key splits; the plane fits of
+    the periodic attitude update stacked in step order."""
     kboot, key = jax.random.split(key)
     plane = None
     if with_plane:
         kp, kboot = jax.random.split(kboot)
         plane = _gumbel(kp, (PLANE_BATCH, N_REGION))
-    steps = [_step_draws(k, cfg) for k in jax.random.split(key, n_frames - 1)]
+    every = cfg.heading_update_every
+    steps = [_step_draws(k, cfg, every > 0 and i % every == 0, kf)
+             for i, k in enumerate(jax.random.split(key, n_frames - 1), 1)]
+    heading = [s.heading for s in steps if s.heading is not None]
     return tslam.SlamDraws(
-        steps=tslam.StepDraws(*(torch.stack(f) for f in zip(*steps))),
-        boot_add=_gumbel(kboot, (KF,)), plane=plane)
+        steps=tslam.StepDraws(
+            *(torch.stack(f) for f in zip(*(s[:3] for s in steps))),
+            heading=torch.stack(heading) if heading else None),
+        boot_add=_gumbel(kboot, (kf,)), plane=plane)
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +108,8 @@ def test_run_slam_matches_jax(seq, jax_run):
     feats, gt, xyz_imgs = seq
     cfg = tslam.SlamConfig(**CFG)
     draws = _run_draws(jax.random.PRNGKey(2), cfg, N_FRAMES, with_plane=True)
-    got = to_numpy(tslam.run_slam(tcamera(), to_torch(feats), cfg,
+    got = to_numpy(tslam.run_slam(tcamera(), to_torch(feats, device="cpu"),
+                                  cfg,
                                   n_landmarks=K, draws=draws,
                                   xyz_imgs=torch.as_tensor(xyz_imgs)))
     ref = jax_run
@@ -120,7 +133,7 @@ def test_run_slam_generator_draws(seq):
     still tracks (aligned ATE < 5 cm), and the same seed repeats exactly.
     Neither draws nor a generator is an error."""
     feats, gt, _ = seq
-    tf = to_torch(feats)
+    tf = to_torch(feats, device="cpu")
     cfg = tslam.SlamConfig(**CFG)
     runs = [tslam.run_slam(tcamera(), tf, cfg, n_landmarks=K,
                            generator=torch.Generator().manual_seed(5))
@@ -152,6 +165,10 @@ STEP_CASES = {
                                  vo_range_weighted=False),
     "cv-only-predict": dict(match_ratio=1.3, motion_model="cv",
                             only_predict=True),
+    "iekf": dict(match_ratio=1.3, est_method="iekf"),
+    # step 3 is a multiple of 3: the floor-plane fit and attitude update
+    # run, on a floor tilted 3° (inside the 4° gate of the identity prior)
+    "1pre-heading": dict(CFG, heading_update_every=3),
 }
 
 
@@ -164,17 +181,22 @@ def test_slam_step_matches_jax(seq, boot_state, name):
     feats, _, _ = seq
     jcfg = jslam.SlamConfig(**STEP_CASES[name])
     cfg = tslam.SlamConfig(**STEP_CASES[name])
+    heading = cfg.heading_update_every > 0
+    xyz = _tilted_floor_xyz(-3.0) if heading else None
     frame = lambda i: jax.tree.map(lambda x: jnp.asarray(x[i]), feats)
     jst = boot_state
     key, step = jax.random.PRNGKey(11), np.int32(3)
     ref_st, (ref_stats, ref_rec) = jax.tree.map(np.asarray, jax.jit(
         functools.partial(jslam.slam_step, jcamera(), cfg=jcfg))(
-        jst, frame(3), frame(2), jnp.asarray(step), key))
+        jst, frame(3), frame(2), jnp.asarray(step), key,
+        xyz_img=None if xyz is None else jnp.asarray(xyz)))
     got_st, (got_stats, got_rec) = to_numpy(tslam.slam_step(
-        tcamera(), to_torch(jax.tree.map(np.asarray, jst)),
-        to_torch(type(feats)(*(x[3] for x in feats))),
-        to_torch(type(feats)(*(x[2] for x in feats))),
-        torch.as_tensor(step), cfg, draws=_step_draws(key, jcfg)))
+        tcamera(), to_torch(jax.tree.map(np.asarray, jst), device="cpu"),
+        to_torch(type(feats)(*(x[3] for x in feats)), device="cpu"),
+        to_torch(type(feats)(*(x[2] for x in feats)), device="cpu"),
+        torch.as_tensor(step), cfg, draws=_step_draws(key, jcfg, heading),
+        xyz_img=None if xyz is None else torch.as_tensor(xyz),
+        host_step=int(step)))
     # the velocity states are the VO increment / dt: 10× its error
     np.testing.assert_allclose(got_st.x[7:13], ref_st.x[7:13], atol=2e-5)
     got_st = got_st._replace(x=np.r_[got_st.x[:7], got_st.x[13:]])
@@ -190,17 +212,26 @@ def test_slam_step_matches_jax(seq, boot_state, name):
         np.testing.assert_array_equal(getattr(got_stats, n),
                                       getattr(ref_stats, n), err_msg=n)
     np.testing.assert_array_equal(got_rec.measured, ref_rec.measured)
+    if heading:  # the attitude update was applied, not gated away
+        off = to_numpy(tslam.slam_step(
+            tcamera(), to_torch(jax.tree.map(np.asarray, jst), device="cpu"),
+            to_torch(type(feats)(*(x[3] for x in feats)), device="cpu"),
+            to_torch(type(feats)(*(x[2] for x in feats)), device="cpu"),
+            torch.as_tensor(step), cfg._replace(heading_update_every=0),
+            draws=_step_draws(key, jcfg)))[0]
+        assert np.abs(off.x[3:7] - got_st.x[3:7]).max() > 1e-4
 
 
 @pytest.mark.parametrize("option", [
-    dict(matcher="ncc_warp"), dict(est_method="iekf"),
-    dict(heading_update_every=4),
+    dict(matcher="ncc_warp"), dict(matcher="ncc_warp", est_method="iekf"),
+    dict(matcher="ncc_warp", heading_update_every=4),
 ])
 def test_unported_options_raise(seq, option):
-    """Options whose modules are not ported raise NotImplementedError
-    before any work — never run something else."""
+    """The warped-patch NCC matcher (with any estimation option) and
+    per-frame intensity images are not ported: they raise
+    NotImplementedError before any work — never run something else."""
     feats, _, xyz_imgs = seq
-    tf = to_torch(feats)
+    tf = to_torch(feats, device="cpu")
     cfg = tslam.SlamConfig(**option)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -216,3 +247,52 @@ def test_unported_options_raise(seq, option):
     with pytest.raises(NotImplementedError, match="not ported"):
         tslam.run_slam(tcamera(), tf, tslam.SlamConfig(), n_landmarks=K,
                        generator=gen, images=torch.zeros(N_FRAMES, 144, 176))
+
+
+SIFT_FRAMES, SIFT_KF = 6, 288
+# bench.py's options at a small map, with the periodic attitude update
+SIFT_CFG = dict(min_measured=50, max_update_slots=24, heading_update_every=2)
+
+
+@pytest.fixture(scope="module")
+def sift_seq():
+    """The reference's SIFT features (its exact branch) of a short
+    sequence, and a tilted floor as every frame's xyz image."""
+    frames, traj, _ = render_sequence(n_frames=SIFT_FRAMES, n_points=300,
+                                      noise=0.004)
+    stack = [np.stack([getattr(f, a) for f in frames])
+             for a in ("intensity", "xyz", "confidence")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PRE3_SIFT_FAST_MATH", "0")
+        feats = jax.tree.map(np.array, jax.jit(jax.vmap(jextract_sift))(
+            *(jnp.asarray(a) for a in stack)))
+    gt = (traj.t - traj.t[0]) @ traj.r[0]
+    xyz_imgs = np.stack([_tilted_floor_xyz()] * SIFT_FRAMES)
+    return feats, gt, xyz_imgs
+
+
+def test_run_slam_sift_heading_matches_jax(sift_seq):
+    """SIFT-fed run_slam (128-D descriptors, 288 slots per frame) with
+    the plane-fit prior and the attitude update on every second step:
+    per-step stats and measured sets equal, poses within POSE_ATOL."""
+    feats, gt, xyz_imgs = sift_seq
+    assert feats.desc.shape == (SIFT_FRAMES, SIFT_KF, 128)
+    cfg = tslam.SlamConfig(**SIFT_CFG)
+    ref = jax.tree.map(np.asarray, jslam.run_slam(
+        jcamera(), jax.tree.map(jnp.asarray, feats), jax.random.PRNGKey(4),
+        cfg=jslam.SlamConfig(**SIFT_CFG), n_landmarks=K,
+        xyz_imgs=jnp.asarray(xyz_imgs)))
+    draws = _run_draws(jax.random.PRNGKey(4), cfg, SIFT_FRAMES,
+                       with_plane=True, kf=SIFT_KF)
+    assert draws.steps.heading.shape[0] == 2  # steps 2 and 4
+    got = to_numpy(tslam.run_slam(
+        tcamera(), to_torch(feats, device="cpu"), cfg, n_landmarks=K,
+        draws=draws, xyz_imgs=torch.as_tensor(xyz_imgs)))
+    for name in ref.stats._fields:
+        np.testing.assert_array_equal(getattr(got.stats, name),
+                                      getattr(ref.stats, name), err_msg=name)
+    np.testing.assert_array_equal(got.records.measured, ref.records.measured)
+    np.testing.assert_allclose(got.t, ref.t, atol=POSE_ATOL)
+    np.testing.assert_allclose(got.q, ref.q, atol=POSE_ATOL)
+    assert ref.stats.n_li.mean() > 10
+    assert ate_rmse(got.t, gt, align=True) < 0.05

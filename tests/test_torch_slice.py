@@ -133,4 +133,5 @@ def test_interop_round_trip():
     back = to_numpy(tf)
     for name in jf._fields:
         np.testing.assert_array_equal(getattr(back, name), getattr(jf, name))
-    assert type(to_torch(f._replace(timestamp=np.float32(0.0)))).__name__ == "Frame"
+    assert type(to_torch(f._replace(timestamp=np.float32(0.0)),
+                         device="cpu")).__name__ == "Frame"

@@ -156,7 +156,7 @@ def test_vo_pair_matches_jax(jax_feats):
     f1, f2 = _frame(jax_feats, 1), _frame(jax_feats, 2)
     ref = jvo_pair(jax.tree.map(jnp.asarray, f1),
                    jax.tree.map(jnp.asarray, f2), key, batch=BATCH)
-    got = tvo_pair(to_torch(f1), to_torch(f2),
+    got = tvo_pair(to_torch(f1, device="cpu"), to_torch(f2, device="cpu"),
                    gumbel=torch.as_tensor(_gumbel(key, (BATCH, K))),
                    batch=BATCH)
     ref, got = jax.tree.map(np.asarray, ref), to_numpy(got)
@@ -178,7 +178,8 @@ def test_failure_keeps_previous_pose(jax_feats):
     gumbel = np.stack([_gumbel(k, (BATCH, K)) for k in keys])
     ref = jax.tree.map(np.asarray, jrun(jax.tree.map(jnp.asarray, feats),
                                         key, batch=BATCH))
-    got = to_numpy(trun(to_torch(feats), gumbel=torch.as_tensor(gumbel),
+    got = to_numpy(trun(to_torch(feats, device="cpu"),
+                        gumbel=torch.as_tensor(gumbel),
                         batch=BATCH))
     np.testing.assert_array_equal(got.ok, ref.ok)
     assert not got.ok[1] and not got.ok[2] and got.ok[3]
