@@ -11,7 +11,15 @@ CUDA kernel of those paths against its plain PyTorch version:
     RANSAC, Kalman updates, map management);
   * the flagship, BASELINE config #3 as bench.py headlines it:
     ``extract_features_sift`` → ``run_slam`` at K=256, and frame by frame
-    through ``OnlineSlam(extractor="sift")`` as __graft_entry__ builds it.
+    through ``OnlineSlam(extractor="sift")`` as __graft_entry__ builds it;
+  * config #2: ``extract_features`` → ``run_slam(matcher="ncc_warp")``
+    with every frame's intensity and xyz image (VO with K2 + K1; the map
+    matched by the warped-patch NCC scan);
+  * config #4, the keyframe backend: ``select_keyframes`` →
+    ``ba_problem_from_slam`` (with ``kf_feats``: keyframe tracks, K2 once
+    per keyframe) → ``mine_keyframe_loop_closures`` (K2 + K1 per pair) →
+    ``merge_lcp`` → ``bundle_adjust`` → ``apply_ba_corrections``, and
+    ``OnlineSlam.smooth``.
 
 Run it from the root of a checkout:
 
@@ -33,7 +41,8 @@ device, and imports nothing of JAX. Phases:
   7. ekf-options — the same, with the iterated update (est_method="iekf"),
                   and with the attitude update every 4 steps;
   8. ekf-slice  — the 256-frame corridor run_slam with FAST features
-                  (K=256, D=1549): frames/s, K1 and K2 launches, ATE;
+                  (K=256, D=1549), one run under sync checks: frames/s,
+                  K1 and K2 launches, ATE;
   9. sift-parity — an 8-frame extract_features_sift on the card vs the
                   port's CPU path: keypoints as sets, descriptors;
  10. sift-slice — the headline: the 256-frame corridor through
@@ -44,7 +53,22 @@ device, and imports nothing of JAX. Phases:
  11. online     — OnlineSlam(extractor="sift", n_landmarks=64) frame by
                   frame over 32 corridor frames against run_slam under the
                   same draws, with no host sync after the bootstrap; then
-                  process_chunk over chunks of 8.
+                  process_chunk over chunks of 8;
+ 12. online-smooth — OnlineSlam.smooth() after phase 11's frames against
+                  the offline chain on run_slam's records, same draws;
+ 13. ncc-parity — a 16-frame run_slam with the NCC matcher (K=64) on the
+                  card vs the port's CPU path, same draws; and with
+                  est_method="iekf";
+ 14. ncc-slice  — config #2 over the 256-frame corridor at K=256:
+                  frames/s, K1 and K2 launches (VO only), n_ic/n_li, ATE;
+ 15. ba         — config #4 on the SIFT slice's last trajectory: M, L,
+                  observations, cost, BA time, launches and device time
+                  per LM iteration, post-BA ATE; the same problem solved
+                  on the CPU;
+ 16. loop       — bench.py's out-and-back scene through the SIFT
+                  run_slam, the keyframe BA, keyframe tracks (K2 per
+                  keyframe) and mined loop closures (K2 + K1 per pair):
+                  SLAM and post-BA ATE.
 
 Each phase prints its seconds (``[time]`` lines).
 
@@ -101,14 +125,20 @@ EKF_ATE_CENTER, EKF_ATE_HALF_WIDTH = 0.153, 0.05
 # may differ: a near-tie can flip one match in one step.
 EKF_PARITY_TOL = 1e-3
 EKF_PARITY_STEPS = 2
-# The FAST EKF slice keeps 1 timed run: the SIFT slice is the headline.
-EKF_TIMED_RUNS = 1
+# The FAST EKF slice runs once, its sync-checked run timed (the SIFT
+# slice is the headline, and the smoke's time goes to configs #2 and #4);
+# the NCC slice keeps 1 warm-up + 1 timed run.
+EKF_TIMED_RUNS, NCC_TIMED_RUNS = 0, 1
 
 # The flagship (bench.py CFG): SIFT, 3 octaves × 96 = 288 keypoints of
 # 128 dims per frame, run_slam at K=256 with the default ratio 1.5.
 SIFT_KF = 288
 SIFT_LANDMARKS = 256
 SIFT_CFG = dict(min_measured=50, max_update_slots=96)
+# One run, timed and sync-checked, with this seed: the smoke ran 645–846 s
+# with 1 warm-up and 1–2 timed runs, as host speed varied between H100
+# machines, against its 1200 s limit.
+SIFT_SEED = 1
 # ATE band of the SIFT slice: the JAX reference on the CPU (its exact SIFT
 # branch, tools/jax_sift_ate_band.py) over keys 0..6, same sequence and
 # config, spans 0.1126–0.1277 m, mean 0.1188 (PERF.md §2); the band is
@@ -126,6 +156,46 @@ SIFT_DESC_TOL, SIFT_DESC_TOL_MOVED = 1e-5, 1e-4
 # calls; __graft_entry__'s configuration.
 ONLINE_FRAMES, ONLINE_LANDMARKS, ONLINE_CHUNK = 32, 64, 8
 ONLINE_TOL = 1e-5
+
+# Config #2 (bench.py fast_ncc_pipeline, :313-325): FAST at threshold
+# 0.05 with 256 features, the warped-patch NCC matcher (grid 13, patch 11,
+# NCC ≥ 0.60, gates 2–20 px), ratio 1.3 (VO), every frame's intensity and
+# xyz image given (so the plane-fit prior is on), K = EKF_LANDMARKS (256).
+NCC_CFG = dict(min_measured=50, max_update_slots=96, matcher="ncc_warp",
+               match_ratio=1.3)
+# ATE band of config #2: the JAX reference on the CPU over keys 0..6
+# (tools/jax_sift_ate_band.py --config ncc) spans 0.0536–0.0899 m, mean
+# 0.0725 (PERF.md §2); the band is 0.072 ± 0.073 m, ~2× that spread on
+# each side. Dead-reckoned VO alone is 0.848 m.
+NCC_ATE_CENTER, NCC_ATE_HALF_WIDTH = 0.072, 0.073
+
+# Config #4 (bench.py :240-269): select_keyframes(max_keyframes=64) →
+# ba_problem_from_slam(max_landmarks=512) → bundle_adjust(iters=10) →
+# apply_ba_corrections, on the SIFT slice's trajectory. Post-BA ATE band:
+# the JAX reference on the CPU over keys 0..6 (--config ba) spans
+# 0.1423–0.2026 m, mean 0.1634; the band is 0.172 ± 0.12 m.
+BA_KEYFRAMES, BA_LANDMARKS, BA_ITERS = 64, 512, 10
+BA_ATE_CENTER, BA_ATE_HALF_WIDTH = 0.172, 0.12
+# The same BaProblem solved on the card and on the CPU: the same f32
+# arithmetic in another reduction order. Every LM decision (accept or
+# reject) must be the same on both: the smallest cost change was 0.013
+# (8e-4 relative), far above f32 noise. Readings on an H100 (PERF.md
+# §6): kf_t 4.3–6.6e-6 m, kf_q 2.6–8.5e-7, points 4.6e-5–1.1e-4 m; the
+# bounds are 15× the largest kf_t and 9× the largest points reading.
+BA_PARITY_TOL, BA_POINTS_TOL = 1e-4, 1e-3
+
+# The loop scene (bench.py :271-306; tools/measure_lcp.py :52-80): the
+# out-and-back corridor through the SIFT run_slam, then config #4's chain,
+# once as bench.py runs it and once with keyframe tracks merged and the
+# mined keyframe loop closures added. JAX CPU keys 0..6 (--config loop):
+# SLAM ATE 0.0950–0.1310 m, post-BA 0.0699–0.0962 m, post-BA with tracks
+# and mined loop closures 0.0942–0.1691 m; each band ~2× the spread on
+# each side.
+LOOP_POINTS = 600
+MINE_MAX_PAIRS = 16  # mine_keyframe_loop_closures' default budget
+LOOP_ATE_CENTER, LOOP_ATE_HALF_WIDTH = 0.113, 0.072
+LOOP_BA_ATE_CENTER, LOOP_BA_ATE_HALF_WIDTH = 0.083, 0.053
+LOOP_MINED_ATE_CENTER, LOOP_MINED_ATE_HALF_WIDTH = 0.132, 0.15
 
 # K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
 # is below this relative gap may legitimately resolve either way.
@@ -285,11 +355,12 @@ def floor_fn(launch, *sizes):
     return run
 
 
-def render(n_frames: int, n_points: int, x_range):
+def render(n_frames: int, n_points: int, x_range, loop: bool = False):
     from pre3_tpu_torch.data.synthetic import render_sequence
 
     frames, traj, _ = render_sequence(
-        n_frames=n_frames, n_points=n_points, noise=NOISE, x_range=x_range)
+        n_frames=n_frames, n_points=n_points, noise=NOISE, x_range=x_range,
+        loop=loop)
     intensity = np.stack([f.intensity for f in frames])
     xyz = np.nan_to_num(np.stack([f.xyz for f in frames]))
     conf = np.stack([f.confidence for f in frames])
@@ -313,12 +384,15 @@ def run_slice(images, gumbel=None, generator=None):
 
 def run_ekf(images, n_landmarks, cfg, draws=None, generator=None,
             xyz_imgs=None):
+    """FAST features → run_slam; the NCC matcher also gets every frame's
+    intensity image."""
     from pre3_tpu_torch.ekf.slam import run_slam
     from pre3_tpu_torch.geometry.camera import sr4000_camera
 
     return run_slam(sr4000_camera(), features(images), cfg,
                     n_landmarks=n_landmarks, draws=draws,
-                    generator=generator, xyz_imgs=xyz_imgs)
+                    generator=generator, xyz_imgs=xyz_imgs,
+                    images=images[0] if cfg.matcher == "ncc_warp" else None)
 
 
 def build_kernels(names):
@@ -342,7 +416,9 @@ def build_kernels(names):
 
 
 def check_k1():
-    """K1 vs its plain version at the VO shapes; timings."""
+    """K1 vs its plain version at every path's shape (VO (1024, 256), the
+    EKF slices' (512, 256) and (512, 288), loop mining's (1024, 288)) and
+    the corner cases; timings at the same shapes."""
     from pre3_tpu_torch.ops.ransac_score import (
         _lib, residuals_torch, score_hypotheses, score_hypotheses_torch,
     )
@@ -351,6 +427,7 @@ def check_k1():
         ("main-1024x256", 1024, 256, 0, False),
         ("slam-512x288", 512, 288, 1, False),
         ("ekf-512x256", 512, 256, 6, False),
+        ("mine-1024x288", 1024, 288, 17, False),
         ("ragged-1000x250", 1000, 250, 2, False),
         ("n1-64x1", 64, 1, 3, False),
         ("all-invalid-128x256", 128, 256, 4, True),
@@ -392,7 +469,7 @@ def check_k1():
           "equal to the eager call")
     timings = {}
     for name, b, n in (("1024x256", 1024, 256), ("512x256", 512, 256),
-                       ("512x288", 512, 288)):
+                       ("512x288", 512, 288), ("1024x288", 1024, 288)):
         args = scorer_problem(b, n, 10)
         t = dict(device_ms=device_ms(lambda: score_hypotheses(*args)),
                  plain_ms=device_ms(lambda: score_hypotheses_torch(*args)),
@@ -444,10 +521,12 @@ def k2_compare(name, k, p, d1, d2) -> float:
 
 
 def check_k2():
-    """K2 vs the plain matcher on the main path's shapes and the corner
+    """K2 vs the plain matcher on every path's shapes (the keyframe
+    tracks' table with its zero, inactive rows among them) and the corner
     cases, those of the cluster's column split among them; graph replay
-    vs eager; timings at the slices' shapes (256²×121, 288²×128 and
-    256×288×128) and at 4096² and 8192²."""
+    vs eager; timings at the slices' shapes (256²×121, 288²×128,
+    256×288×128 and the keyframe tracks' 512×288×128) and at 4096² and
+    8192², which no path of the repo reaches."""
     from pre3_tpu_torch.ops.matching import (
         BIG, K2_RANKS, _best_two, _launch_k2, _lib, _pairwise_dist2,
         match_descriptors, match_descriptors_k2,
@@ -457,6 +536,7 @@ def check_k2():
         ("step-256x256-d121", 256, 256, 121, 0),
         ("sift-256x288-d128", 256, 288, 128, 1),
         ("sift-vo-288x288-d128", 288, 288, 128, 15),
+        ("tracks-512x288-d128", 512, 288, 128, 16),
         ("ragged-1000x777-d121", 1000, 777, 121, 2),
         ("one-1x1-d121", 1, 1, 121, 3),
         ("map-4096x4096-d128", 4096, 4096, 128, 4),
@@ -534,6 +614,28 @@ def check_k2():
             raise AssertionError(f"K2 all-invalid: {m}")
     phase("kernel", "K2 all-invalid d2: best = second = 1e30, index 0, "
           "nothing accepted — equal to the plain version")
+    # the keyframe tracks' table (backend/tracks.py): 512 rows, zero and
+    # inactive (valid1 False) until a keyframe spawns them, 64 at a time;
+    # none active at the first keyframe. A zero row's distances are the
+    # columns' ‖d2‖², equal to within ulps (unit descriptors), so its
+    # index is a near-tie, left out of the index check and counted apart
+    for n_active, seed in ((0, 18), (64, 19), (192, 20)):
+        d1, d2, _, v2 = matcher_problem(512, 288, 128, seed)
+        d1[n_active:] = 0.0
+        v1 = torch.zeros(512, dtype=torch.bool, device="cuda")
+        v1[:n_active] = True
+        k = match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)
+        p = match_descriptors(d1, d2, v1, v2, ratio=1.3)
+        name = f"tracks-{n_active}-active-512x288-d128"
+        max_abs_err = max(max_abs_err, k2_compare(name, k, p, d1, d2))
+        same = int((k.index == p.index)[n_active:].sum())
+        phase("kernel", f"K2 {name}: zero rows' index equal to the plain "
+              f"version's on {same}/{512 - n_active}")
+        if bool(k.accepted[n_active:].any()) or (
+            n_active and not bool(k.accepted.any())
+        ):
+            raise AssertionError(f"K2 {name}: accepted on inactive rows, "
+                                 "or nothing on the active ones")
 
     d1, d2, v1, v2 = matcher_problem(256, 256, 121, 12)
     if not replay_equals_eager(
@@ -547,6 +649,7 @@ def check_k2():
     for name, n1, n2, d in (("256x256-d121", 256, 256, 121),
                             ("288x288-d128", 288, 288, 128),
                             ("256x288-d128", 256, 288, 128),
+                            ("512x288-d128", 512, 288, 128),
                             ("4096x4096-d128", 4096, 4096, 128),
                             ("8192x8192-d128", 8192, 8192, 128)):
         d1, d2, v1, v2 = matcher_problem(n1, n2, d, 11)
@@ -688,11 +791,12 @@ def tilted_floor_xyz(tilt_deg: float = -20.0) -> np.ndarray:
 
 
 def ekf_parity(name: str = "ekf-parity", **options):
-    """Phase 6 (7 with ``options``): 16-frame run_slam, K=64, card vs the
-    port's CPU path, same draws. With the attitude update, every frame's
-    xyz image is a tilted floor (so the plane fits pass their gates), and
-    the card's run is also held against the same run without it: the
-    update must have moved the orientation."""
+    """Phase 6 (7 and 13 with ``options``): 16-frame run_slam, K=64, card
+    vs the port's CPU path, same draws. With the attitude update, every
+    frame's xyz image is a tilted floor (so the plane fits pass their
+    gates), and the card's run is also held against the same run without
+    it: the update must have moved the orientation. With the NCC matcher
+    every frame's intensity image is given too."""
     from pre3_tpu_torch.ekf.slam import SlamConfig
     from pre3_tpu_torch.utils.interop import to_torch
 
@@ -741,24 +845,34 @@ def ekf_parity(name: str = "ekf-parity", **options):
         raise AssertionError(f"{name}: card and CPU EKF runs disagree")
 
 
-def ekf_slice(im, gt):
-    """Phase 8: the 256-frame corridor EKF slice with FAST features,
-    1 warm-up + EKF_TIMED_RUNS timed."""
+def ekf_slice(im, gt, name="ekf-slice", cfg_kw=EKF_CFG,
+              band=(EKF_ATE_CENTER, EKF_ATE_HALF_WIDTH),
+              timed_runs=EKF_TIMED_RUNS):
+    """Phase 8 (14 with the NCC matcher): the 256-frame corridor EKF
+    slice with FAST features at K=256, one run under sync checks and
+    ``timed_runs`` more (with none, the checked run is the timed one).
+    The descriptor matcher launches K2 twice per step (VO and the map),
+    the NCC matcher once (VO; the map is matched by the NCC scan, which
+    also gets every frame's xyz image)."""
     from pre3_tpu_torch.ekf.slam import SlamConfig
     from pre3_tpu_torch.eval.trajectory import ate_rmse
     from pre3_tpu_torch.ops.matching import match_descriptors_k2
     from pre3_tpu_torch.ops.ransac_score import score_hypotheses
 
-    cfg = SlamConfig(**EKF_CFG)
+    cfg = SlamConfig(**cfg_kw)
+    ncc = cfg.matcher == "ncc_warp"
+    want_k2 = (1 if ncc else 2) * (N_FRAMES - 1)
+    center, half = band
     seconds = []
-    for run in range(EKF_TIMED_RUNS + 1):  # run 0 warms up under sync checks
+    for run in range(timed_runs + 1):  # run 0 runs under sync checks
         gen = torch.Generator(device="cuda").manual_seed(run)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error" if run == 0 else "default")
         score_hypotheses.launches = 0
         match_descriptors_k2.launches = 0
         t0 = time.perf_counter()
-        out = run_ekf(im, EKF_LANDMARKS, cfg, generator=gen)
+        out = run_ekf(im, EKF_LANDMARKS, cfg, generator=gen,
+                      xyz_imgs=im[1] if ncc else None)
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
@@ -766,7 +880,7 @@ def ekf_slice(im, gt):
         s = out.stats
         t = out.t.cpu().numpy()
         ate = ate_rmse(t, gt, align=False)
-        phase("ekf-slice", f"run {run}{' (warm-up, no host sync)' if run == 0 else ''}: "
+        phase(name, f"run {run}{' (no host sync)' if run == 0 else ''}: "
               f"{elapsed:.4f} s, {N_FRAMES / elapsed:.2f} frames/s, "
               f"K1 launches {k1}, K2 launches {k2}, VO ok "
               f"{int(s.vo_ok.sum())}/{N_FRAMES - 1}, mean n_ic "
@@ -775,19 +889,18 @@ def ekf_slice(im, gt):
               f"{float(s.n_hi.float().mean()):.2f}, n_active "
               f"{float(s.n_active.float().mean()):.2f}, overflow "
               f"{int(s.update_overflow.sum())}, ATE {ate:.4f} m")
-        if k1 != N_FRAMES - 1 or k2 != 2 * (N_FRAMES - 1):
-            raise AssertionError(f"EKF slice: K1 launched {k1}, K2 {k2} "
-                                 f"times; expected {N_FRAMES - 1} and "
-                                 f"{2 * (N_FRAMES - 1)}")
+        if k1 != N_FRAMES - 1 or k2 != want_k2:
+            raise AssertionError(f"{name}: K1 launched {k1}, K2 {k2} times; "
+                                 f"expected {N_FRAMES - 1} and {want_k2}")
         if not np.isfinite(t).all():
-            raise AssertionError("EKF slice: non-finite trajectory")
-        if abs(ate - EKF_ATE_CENTER) > EKF_ATE_HALF_WIDTH:
-            raise AssertionError(f"EKF ATE {ate:.4f} m outside "
-                                 f"{EKF_ATE_CENTER} ± {EKF_ATE_HALF_WIDTH}")
-        if run:
+            raise AssertionError(f"{name}: non-finite trajectory")
+        if abs(ate - center) > half:
+            raise AssertionError(f"{name}: ATE {ate:.4f} m outside {center} "
+                                 f"± {half}")
+        if run or not timed_runs:
             seconds.append(elapsed)
     fps = sorted(N_FRAMES / s for s in seconds)
-    phase("ekf-slice", f"EKF frames/s median {statistics.median(fps):.2f}, "
+    phase(name, f"frames/s median {statistics.median(fps):.2f}, "
           f"min {fps[0]:.2f}, max {fps[-1]:.2f} over {len(fps)} runs "
           f"(frontend + run_slam, host clock around synchronize)")
     return k1, k2
@@ -847,75 +960,63 @@ def sift_parity():
 
 def sift_slice(im, gt):
     """Phase 10, the headline: the 256-frame corridor through
-    extract_features_sift and run_slam with bench.py's CFG, 1 warm-up
-    under sync checks + TIMED_RUNS timed. The frontend and run_slam are
-    timed apart (a synchronize between them)."""
+    extract_features_sift and run_slam with bench.py's CFG, once, timed
+    and under sync checks (K1, K2 and the SIFT frontend are warm from
+    the earlier phases). The frontend and run_slam are timed apart: a
+    synchronize between them, outside the checked calls."""
     from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
     from pre3_tpu_torch.eval.trajectory import ate_rmse
     from pre3_tpu_torch.geometry.camera import sr4000_camera
     from pre3_tpu_torch.ops.matching import match_descriptors_k2
     from pre3_tpu_torch.ops.ransac_score import score_hypotheses
 
-    cfg = SlamConfig(**SIFT_CFG)
-    seconds, frontend = [], []
-    for run in range(TIMED_RUNS + 1):  # run 0 warms up under sync checks
-        gen = torch.Generator(device="cuda").manual_seed(run)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.set_sync_debug_mode("error" if run == 0 else "default")
-        score_hypotheses.launches = 0
-        match_descriptors_k2.launches = 0
-        t0 = time.perf_counter()
-        feats = sift_features(im)
-        if run:
-            torch.cuda.synchronize()
-        t_fe = time.perf_counter() - t0
-        out = run_slam(sr4000_camera(), feats, cfg,
-                       n_landmarks=SIFT_LANDMARKS, generator=gen)
-        torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        k1, k2 = score_hypotheses.launches, match_descriptors_k2.launches
-        peak = torch.cuda.max_memory_allocated()
-        s = out.stats
-        t = out.t.cpu().numpy()
-        ate = ate_rmse(t, gt, align=False)
-        phase("sift-slice", f"run {run}{' (warm-up, no host sync)' if run == 0 else ''}: "
-              f"{elapsed:.4f} s, {N_FRAMES / elapsed:.2f} frames/s"
-              f"{f', frontend {t_fe:.4f} s ({t_fe / elapsed:.1%})' if run else ''}, "
-              f"K1 launches {k1}, K2 launches {k2}, VO ok "
-              f"{int(s.vo_ok.sum())}/{N_FRAMES - 1}, valid keypoints per "
-              f"frame {float(feats.valid.sum(-1).float().mean()):.1f}, mean "
-              f"n_ic {float(s.n_ic.float().mean()):.2f}, n_li "
-              f"{float(s.n_li.float().mean()):.2f}, n_hi "
-              f"{float(s.n_hi.float().mean()):.2f}, n_active "
-              f"{float(s.n_active.float().mean()):.2f}, overflow "
-              f"{int(s.update_overflow.sum())}, peak memory "
-              f"{peak / 2**20:.1f} MiB, ATE {ate:.4f} m")
-        if k1 != N_FRAMES - 1 or k2 != 2 * (N_FRAMES - 1):
-            raise AssertionError(f"SIFT slice: K1 launched {k1}, K2 {k2} "
-                                 f"times; expected {N_FRAMES - 1} and "
-                                 f"{2 * (N_FRAMES - 1)}")
-        if feats.desc.shape != (N_FRAMES, SIFT_KF, 128):
-            raise AssertionError(f"SIFT slice: features {feats.desc.shape}")
-        if not np.isfinite(t).all():
-            raise AssertionError("SIFT slice: non-finite trajectory")
-        if abs(ate - SIFT_ATE_CENTER) > SIFT_ATE_HALF_WIDTH:
-            raise AssertionError(f"SIFT ATE {ate:.4f} m outside "
-                                 f"{SIFT_ATE_CENTER} ± {SIFT_ATE_HALF_WIDTH}")
-        if run:
-            seconds.append(elapsed)
-            frontend.append(t_fe)
-    fps = sorted(N_FRAMES / s for s in seconds)
-    fe_ms = sorted(1e3 * f / N_FRAMES for f in frontend)
-    phase("sift-slice", f"SIFT EKF frames/s median "
-          f"{statistics.median(fps):.2f}, min {fps[0]:.2f}, max {fps[-1]:.2f} "
-          f"over {len(fps)} runs (frontend + run_slam, host clock around "
-          f"synchronize); frontend {statistics.median(fe_ms):.3f} ms per "
-          f"frame median ({fe_ms[0]:.3f}–{fe_ms[-1]:.3f}), "
-          f"{statistics.median(f / e for f, e in zip(frontend, seconds)):.2%}"
-          f" of the run")
-    return k1, k2
+    gen = torch.Generator(device="cuda").manual_seed(SIFT_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    score_hypotheses.launches = 0
+    match_descriptors_k2.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    feats = sift_features(im)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_fe = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("error")
+    out = run_slam(sr4000_camera(), feats, SlamConfig(**SIFT_CFG),
+                   n_landmarks=SIFT_LANDMARKS, generator=gen)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1, k2 = score_hypotheses.launches, match_descriptors_k2.launches
+    peak = torch.cuda.max_memory_allocated()
+    s = out.stats
+    t = out.t.cpu().numpy()
+    ate = ate_rmse(t, gt, align=False)
+    phase("sift-slice", f"{elapsed:.4f} s, {N_FRAMES / elapsed:.2f} frames/s "
+          f"(frontend + run_slam, host clock around synchronize, no host "
+          f"sync in either), frontend {t_fe:.4f} s "
+          f"({1e3 * t_fe / N_FRAMES:.3f} ms per frame, {t_fe / elapsed:.2%}), "
+          f"K1 launches {k1}, K2 launches {k2}, VO ok "
+          f"{int(s.vo_ok.sum())}/{N_FRAMES - 1}, valid keypoints per "
+          f"frame {float(feats.valid.sum(-1).float().mean()):.1f}, mean "
+          f"n_ic {float(s.n_ic.float().mean()):.2f}, n_li "
+          f"{float(s.n_li.float().mean()):.2f}, n_hi "
+          f"{float(s.n_hi.float().mean()):.2f}, n_active "
+          f"{float(s.n_active.float().mean()):.2f}, overflow "
+          f"{int(s.update_overflow.sum())}, peak memory "
+          f"{peak / 2**20:.1f} MiB, ATE {ate:.4f} m")
+    if k1 != N_FRAMES - 1 or k2 != 2 * (N_FRAMES - 1):
+        raise AssertionError(f"SIFT slice: K1 launched {k1}, K2 {k2} "
+                             f"times; expected {N_FRAMES - 1} and "
+                             f"{2 * (N_FRAMES - 1)}")
+    if feats.desc.shape != (N_FRAMES, SIFT_KF, 128):
+        raise AssertionError(f"SIFT slice: features {feats.desc.shape}")
+    if not np.isfinite(t).all():
+        raise AssertionError("SIFT slice: non-finite trajectory")
+    if abs(ate - SIFT_ATE_CENTER) > SIFT_ATE_HALF_WIDTH:
+        raise AssertionError(f"SIFT ATE {ate:.4f} m outside "
+                             f"{SIFT_ATE_CENTER} ± {SIFT_ATE_HALF_WIDTH}")
+    return k1, k2, out
 
 
 def online_phase(images, gt):
@@ -974,6 +1075,7 @@ def online_phase(images, gt):
           f"{ate:.4f} m")
     if not stats_equal or dt > ONLINE_TOL or dq > ONLINE_TOL:
         raise AssertionError("OnlineSlam and run_slam disagree on the card")
+    streamed = (slam, ref)
 
     chunked = OnlineSlam(sr4000_camera(), cfg=cfg,
                          n_landmarks=ONLINE_LANDMARKS, extractor="sift",
@@ -993,6 +1095,239 @@ def online_phase(images, gt):
         not np.isfinite(tc).all()
     ):
         raise AssertionError("OnlineSlam.process_chunk run failed")
+    return streamed
+
+
+def smooth_phase(slam, ref):
+    """Phase 12: OnlineSlam.smooth() (its defaults: keyframes over the
+    whole history, max_keyframes 32, max_landmarks 256, 8 LM iterations)
+    after phase 11's frames, against the offline chain on run_slam's
+    records under the same draws."""
+    from pre3_tpu_torch.backend.ba import bundle_adjust
+    from pre3_tpu_torch.backend.ekf_ba import ba_problem_from_slam
+    from pre3_tpu_torch.backend.keyframes import select_keyframes
+    from pre3_tpu_torch.backend.smoothing import apply_ba_corrections
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+
+    t0 = time.perf_counter()
+    sm_t, sm_q = slam.smooth()
+    elapsed = time.perf_counter() - t0
+    n = ref.t.shape[0]
+    ks = select_keyframes(ref.t, ref.q, torch.ones(n, dtype=torch.bool,
+                                                   device="cuda"),
+                          max_keyframes=32)
+    prob = ba_problem_from_slam(ref, ks.indices, ks.valid, max_landmarks=256)
+    if prob is None:
+        raise AssertionError("online-smooth: no landmark in two keyframes")
+    res = bundle_adjust(sr4000_camera(), prob, iters=8)
+    off_t, off_q = (x.cpu().numpy() for x in apply_ba_corrections(
+        ref.t, ref.q, ks.indices, ks.valid, res.kf_t, res.kf_q))
+    ts, _ = slam.trajectory
+    dt = float(np.abs(sm_t - off_t).max())
+    dq = float(np.abs(sm_q - off_q).max())
+    moved = float(np.abs(sm_t - ts).max())
+    phase("online-smooth", f"smooth() over {n} frames in {elapsed:.3f} s "
+          f"(host clock; it synchronises): {int(ks.n)} keyframes, "
+          f"{prob.mask.shape[1]} landmarks, cost {float(res.cost[0]):.4f} "
+          f"-> {float(res.cost[-1]):.4f}; moved the trajectory by up to "
+          f"{moved:.4f} m; vs the offline chain on run_slam's records: "
+          f"max |Δt| {dt:.3e} m, max |Δq| {dq:.3e} (tolerance {ONLINE_TOL})")
+    if dt > ONLINE_TOL or dq > ONLINE_TOL or moved < 1e-3 or not (
+        np.isfinite(sm_t).all()
+    ):
+        raise AssertionError("OnlineSlam.smooth and the offline chain "
+                             "disagree")
+
+
+def ba_chain(out, kf_feats=None):
+    """Config #4's keyframes and bridge on a run_slam output: (KeyframeSet,
+    BaProblem); with ``kf_feats`` the keyframe tracks are merged."""
+    from pre3_tpu_torch.backend.ekf_ba import ba_problem_from_slam
+    from pre3_tpu_torch.backend.keyframes import select_keyframes
+
+    n = out.t.shape[0]
+    ks = select_keyframes(out.t, out.q, torch.ones(n, dtype=torch.bool,
+                                                   device=out.t.device),
+                          max_keyframes=BA_KEYFRAMES)
+    prob = ba_problem_from_slam(out, ks.indices, ks.valid,
+                                max_landmarks=BA_LANDMARKS, kf_feats=kf_feats)
+    if prob is None:
+        raise AssertionError("ba_problem_from_slam found no landmark")
+    return ks, prob
+
+
+def ba_solve(out, ks, prob):
+    """bundle_adjust(iters=BA_ITERS) → apply_ba_corrections: (BaResult,
+    smoothed positions [F, 3])."""
+    from pre3_tpu_torch.backend.ba import bundle_adjust
+    from pre3_tpu_torch.backend.smoothing import apply_ba_corrections
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+
+    res = bundle_adjust(sr4000_camera(), prob, iters=BA_ITERS)
+    sm_t, _ = apply_ba_corrections(out.t, out.q, ks.indices, ks.valid,
+                                   res.kf_t, res.kf_q)
+    return res, sm_t
+
+
+def describe(prob) -> str:
+    m, l = prob.mask.shape
+    n_lcp = 0 if prob.lcp_i is None else int(prob.lcp_i.shape[0])
+    return (f"M {m}, L {l}, observations {int(prob.mask.sum())}, "
+            f"loop-closure landmarks {int(prob.lc_lm.sum())}, lcp {n_lcp}")
+
+
+def ba_phase(out, gt):
+    """Phase 15, config #4 on the SIFT slice's last trajectory: keyframes
+    and bridge, then BA + corrections twice (the first run warms up; the
+    second is bench.py's ba_ms_total), one profiled BA (launches and
+    device time per LM iteration), and the same BaProblem solved on the
+    CPU."""
+    from pre3_tpu_torch.backend.ba import BaProblem, bundle_adjust
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils.profile_slice import _profiled
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ks, prob = ba_chain(out)
+    torch.cuda.synchronize()
+    t_bridge = time.perf_counter() - t0
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, sm_t = ba_solve(out, ks, prob)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    cost = res.cost.cpu().numpy()
+    slam_ate = ate_rmse(out.t.cpu().numpy(), gt, align=False)
+    ate = ate_rmse(sm_t.cpu().numpy(), gt, align=False)
+    cam = sr4000_camera()
+    launches, busy_us, _ = _profiled(
+        lambda: bundle_adjust(cam, prob, iters=BA_ITERS))
+    per_it = ms[1] / BA_ITERS
+    busy_it = busy_us / 1e3 / BA_ITERS
+    phase("ba", f"{int(ks.n)} keyframes; {describe(prob)}; keyframes + "
+          f"bridge {1e3 * t_bridge:.1f} ms; BA + corrections {ms[0]:.1f} ms "
+          f"(first), {ms[1]:.1f} ms (ba_ms_total; host clock around "
+          f"synchronize); cost {cost[0]:.4f} -> {cost[-1]:.4f} "
+          f"({', '.join(f'{c:.4f}' for c in cost)}); peak memory "
+          f"{peak / 2**20:.1f} MiB; SLAM ATE {slam_ate:.4f} m, post-BA ATE "
+          f"{ate:.4f} m")
+    phase("ba", f"per LM iteration: {launches / BA_ITERS:.1f} launches, "
+          f"device busy {busy_it:.3f} ms, host {per_it:.3f} ms unprofiled, "
+          f"idle share {1.0 - busy_it / per_it:.4f}")
+    if not np.isfinite(cost).all() or cost[-1] >= cost[0]:
+        raise AssertionError(f"BA: cost {cost[0]} -> {cost[-1]}")
+    if abs(ate - BA_ATE_CENTER) > BA_ATE_HALF_WIDTH:
+        raise AssertionError(f"post-BA ATE {ate:.4f} m outside "
+                             f"{BA_ATE_CENTER} ± {BA_ATE_HALF_WIDTH}")
+    t0 = time.perf_counter()
+    res_cpu = bundle_adjust(cam, BaProblem(
+        *(None if x is None else x.cpu() for x in prob)), iters=BA_ITERS)
+    t_cpu = time.perf_counter() - t0
+    dt = float((res.kf_t.cpu() - res_cpu.kf_t).abs().max())
+    dq = float((res.kf_q.cpu() - res_cpu.kf_q).abs().max())
+    dp = float((res.points.cpu() - res_cpu.points).abs().max())
+    cost_cpu = res_cpu.cost.numpy()
+    # a rejected LM step keeps the cost; an accepted one lowers it
+    accepted, accepted_cpu = np.diff(cost) < 0, np.diff(cost_cpu) < 0
+    phase("ba", f"card vs CPU (CPU solve {t_cpu:.1f} s): max |Δkf_t| "
+          f"{dt:.3e} m, max |Δkf_q| {dq:.3e} (tolerance {BA_PARITY_TOL}), "
+          f"max |Δpoints| {dp:.3e} m (tolerance {BA_POINTS_TOL}); LM steps "
+          f"accepted {int(accepted.sum())}/{BA_ITERS} on the card, "
+          f"{int(accepted_cpu.sum())}/{BA_ITERS} on the CPU, decisions "
+          f"equal {bool((accepted == accepted_cpu).all())}; CPU cost "
+          f"{', '.join(f'{c:.4f}' for c in cost_cpu)}")
+    if dt > BA_PARITY_TOL or dq > BA_PARITY_TOL or dp > BA_POINTS_TOL or (
+        not (accepted == accepted_cpu).all()
+    ):
+        raise AssertionError("BA: card and CPU solutions disagree")
+
+
+def loop_phase():
+    """Phase 16, the loop scene (bench.py :271-306 and
+    tools/measure_lcp.py :52-80): the out-and-back corridor through the
+    SIFT run_slam; config #4's chain as bench.py runs it; then the
+    keyframe tracks merged into the bridge (K2 once per keyframe) and the
+    mined keyframe loop closures (K2 + K1 once per candidate pair tried)
+    merged into its factors, and BA again. Returns the launches of the
+    tracks and of the mining."""
+    from pre3_tpu_torch.backend.loop_detect import (
+        merge_lcp, mine_keyframe_loop_closures, pairs_to_try,
+    )
+    from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.ops.matching import match_descriptors_k2
+    from pre3_tpu_torch.ops.ransac_score import score_hypotheses
+
+    drift = 0.03 * 0.5 * (N_FRAMES // 2)
+    images, gt = render(N_FRAMES, LOOP_POINTS, (-1.8, drift + 1.8), loop=True)
+    im = [torch.as_tensor(a, device="cuda") for a in images]
+    t0 = time.perf_counter()
+    feats = sift_features(im)
+    out = run_slam(sr4000_camera(), feats, SlamConfig(**SIFT_CFG),
+                   n_landmarks=SIFT_LANDMARKS,
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_slam = time.perf_counter() - t0
+    slam_ate = ate_rmse(out.t.cpu().numpy(), gt, align=False)
+
+    ks, prob = ba_chain(out)
+    _, sm_t = ba_solve(out, ks, prob)
+    ba_ate = ate_rmse(sm_t.cpu().numpy(), gt, align=False)
+
+    idx = ks.indices.long()
+    kf_feats = Features(*(x[idx] for x in feats))
+    match_descriptors_k2.launches = 0
+    _, prob_t = ba_chain(out, kf_feats)
+    k2_tracks = match_descriptors_k2.launches
+    score_hypotheses.launches = 0
+    match_descriptors_k2.launches = 0
+    mined = mine_keyframe_loop_closures(
+        kf_feats, out.t[idx], out.q[idx], ks.valid, max_pairs=MINE_MAX_PAIRS,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    k1_mine, k2_mine = score_hypotheses.launches, match_descriptors_k2.launches
+    n_mined = 0 if mined is None else len(mined[0])
+    # the mining tries pairs_to_try's pairs in order until MINE_MAX_PAIRS
+    # factors are accepted
+    tried = pairs_to_try(out.t[idx], ks.valid)
+    pairs = len(tried) if n_mined < MINE_MAX_PAIRS else tried.index(
+        (int(mined[0][-1]), int(mined[1][-1]))) + 1
+    merged = merge_lcp(prob_t, mined)
+    res, sm2 = ba_solve(out, ks, merged)
+    mined_ate = ate_rmse(sm2.cpu().numpy(), gt, align=False)
+    l = prob.mask.shape[1]
+    phase("loop", f"{N_FRAMES} frames out and back: SIFT run_slam "
+          f"{t_slam:.1f} s ({N_FRAMES / t_slam:.2f} frames/s), SLAM ATE "
+          f"{slam_ate:.4f} m; {int(ks.n)} keyframes; bench.py's chain: "
+          f"{describe(prob)}, post-BA ATE {ba_ate:.4f} m")
+    phase("loop", f"keyframe tracks ({min(4 * l, 512)} table rows × "
+          f"{feats.desc.shape[1]} features per keyframe): K2 launches "
+          f"{k2_tracks} for {len(idx)} keyframes; {describe(prob_t)}")
+    phase("loop", f"loop mining: {pairs} candidate pairs tried, K2 launches "
+          f"{k2_mine}, K1 launches {k1_mine}, {n_mined} factors mined; "
+          f"merged: {describe(merged)}; cost {float(res.cost[0]):.4f} -> "
+          f"{float(res.cost[-1]):.4f}; post-BA ATE {mined_ate:.4f} m")
+    if k2_tracks != len(idx):
+        raise AssertionError(f"tracks: K2 launched {k2_tracks} times for "
+                             f"{len(idx)} keyframes")
+    if pairs < 1 or k1_mine != pairs or k2_mine != pairs:
+        raise AssertionError(f"loop mining: K1 {k1_mine}, K2 {k2_mine} "
+                             f"launches for {pairs} pairs tried")
+    for name, ate, center, half in (
+            ("SLAM", slam_ate, LOOP_ATE_CENTER, LOOP_ATE_HALF_WIDTH),
+            ("post-BA", ba_ate, LOOP_BA_ATE_CENTER, LOOP_BA_ATE_HALF_WIDTH),
+            ("post-BA with tracks and mined loop closures", mined_ate,
+             LOOP_MINED_ATE_CENTER, LOOP_MINED_ATE_HALF_WIDTH)):
+        if abs(ate - center) > half:
+            raise AssertionError(f"loop {name} ATE {ate:.4f} m outside "
+                                 f"{center} ± {half}")
+    return k2_tracks, (k1_mine, k2_mine)
 
 
 def main() -> None:
@@ -1042,16 +1377,30 @@ def main() -> None:
           heading_update_every=4)
     timed("ekf-slice", ekf_slice, im, gt)
 
-    # ---- 9.–11. the flagship: SIFT → run_slam, and OnlineSlam ----
+    # ---- 9.–12. the flagship: SIFT → run_slam, OnlineSlam, smooth() ----
     timed("sift-parity", sift_parity)
-    k1, k2 = timed("sift-slice", sift_slice, im, gt)
-    timed("online", online_phase, images, gt)
+    k1, k2, sift_out = timed("sift-slice", sift_slice, im, gt)
+    streamed = timed("online", online_phase, images, gt)
+    timed("online-smooth", smooth_phase, *streamed)
+
+    # ---- 13./14. config #2: FAST + the warped-patch NCC matcher ----
+    timed("ncc-parity", ekf_parity, "ncc-parity", matcher="ncc_warp")
+    timed("ncc-parity iekf", ekf_parity, "ncc-parity", matcher="ncc_warp",
+          est_method="iekf")
+    ncc_k1, ncc_k2 = timed("ncc-slice", ekf_slice, im, gt, "ncc-slice",
+                           NCC_CFG, (NCC_ATE_CENTER, NCC_ATE_HALF_WIDTH),
+                           NCC_TIMED_RUNS)
+
+    # ---- 15./16. config #4: keyframe BA, tracks, loop mining ----
+    timed("ba", ba_phase, sift_out, gt)
+    tracks_k2, (mine_k1, mine_k2) = timed("loop", loop_phase)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
-    # times at the SIFT headline's shapes, whose run gave the launch
-    # counts; "ms" is the graph-replayed device time. K2 runs at 288×288
-    # (VO) and 256×288 (map matching), once each per step.
+    # times at the SIFT headline's shapes, whose run gave "launches";
+    # "ms" is the graph-replayed device time. K2 runs at 288×288 (VO) and
+    # 256×288 (map matching), once each per step. "paths" holds each
+    # path's launches, counted from 0 around that path's run.
     k1_t = k1_times["512x288"]
     k2_vo, k2_map = k2_times["288x288-d128"], k2_times["256x288-d128"]
     print(json.dumps({"kernels": [
@@ -1059,13 +1408,21 @@ def main() -> None:
          "source": "pre3_tpu_torch/csrc/ransac_score.cu",
          "replaces": "pre3_tpu/ops/ransac_score.py:45",
          "shape": "B=512, N=288", "launches": k1, "max_abs_err": k1_err,
-         "ms": k1_t["device_ms"], **k1_t},
+         "ms": k1_t["device_ms"], **k1_t,
+         "paths": {"sift_slice": k1, "ncc_slice": ncc_k1,
+                   "loop_mining": mine_k1},
+         "loop_mining_time": {"shape": "B=1024, N=288",
+                              **k1_times["1024x288"]}},
         {"name": "match_stream", "route": "cuda",
          "source": "pre3_tpu_torch/csrc/match_stream.cu",
          "replaces": "pre3_tpu/ops/matching.py:105",
          "shape": "N1=N2=288, D=128 (VO; half the launches)",
          "launches": k2, "max_abs_err": k2_err, "ms": k2_vo["device_ms"],
-         **k2_vo, "map_match": {"shape": "N1=256, N2=288, D=128", **k2_map}},
+         **k2_vo, "map_match": {"shape": "N1=256, N2=288, D=128", **k2_map},
+         "paths": {"sift_slice": k2, "ncc_slice": ncc_k2,
+                   "tracks": tracks_k2, "loop_mining": mine_k2},
+         "tracks_time": {"shape": "N1=512, N2=288, D=128",
+                         **k2_times["512x288-d128"]}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,6 +24,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from pre3_tpu_torch.ekf.state import CAM_DIM, LM_DIM, EkfState
+from pre3_tpu_torch.frontend.patch_warp import extract_raw_patches
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.inverse_depth import (
@@ -176,13 +177,9 @@ def add_features(
 
     sampling: "topk" (detector score) or "weighted" (needs ``gumbel``
     [Kf] or a ``generator``; without either it is "topk", as the
-    reference is without a key). ``image`` records the init patches of
-    the NCC matcher, which is not ported: passing one raises."""
-    if image is not None:
-        raise NotImplementedError(
-            "add_features(image=...) records init patches for the warped-"
-            "patch NCC matcher (pre3_tpu/ekf/ncc_matching.py), which "
-            "pre3_tpu_torch does not port yet")
+    reference is without a key). ``image`` [H, W] records each new
+    feature's raw init patch for the warped-patch NCC matcher; without
+    it ``init_patch`` is left as it is (descriptor matching)."""
     k = state.n_landmarks
     dev, dt = state.x.device, state.x.dtype
     # more adds than slots can never land: clamp so candidates and free
@@ -213,6 +210,10 @@ def add_features(
     slot_order = torch.argsort(state.active.to(torch.int32), stable=True)
     free_slots = slot_order[:max_adds]
     slot_free = ~state.active[free_slots]
+
+    # init-appearance record of the NCC matcher (patch_when_initialized)
+    cand_patches = None if image is None else extract_raw_patches(
+        image, frame.uv[top_idx], size=state.init_patch.shape[-1])
 
     # All adds as ONE batched covariance augmentation: strips against the
     # pre-add P plus the explicit new×new cross-covariance Jc_a·Pcc·Jc_bᵀ
@@ -277,6 +278,9 @@ def add_features(
         return out
 
     do2 = do[:, None]
+    if cand_patches is not None:
+        state = state._replace(init_patch=put(state.init_patch, torch.where(
+            do2[..., None], cand_patches, state.init_patch[free_slots])))
     return state._replace(
         x=x, p=p,
         active=put(state.active, state.active[free_slots] | do),

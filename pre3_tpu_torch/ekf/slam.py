@@ -9,9 +9,12 @@ Port of ``pre3_tpu/ekf/slam.py``. Per frame k:
   5. bookkeeping counters
   6. map management: delete / convert / add
 
-Estimation methods: 1PRE (above), ``pure_ekf`` (one update on every IC
-match) and ``iekf`` (iterated update on every IC match); an optional
-periodic gravity-direction update from a floor-plane fit closes the step.
+Matchers: descriptors (``search_ic_matches``, K2) or, with
+``matcher="ncc_warp"`` and per-frame intensity images, the warped-patch
+NCC scan (``ncc_matching.py``). Estimation methods: 1PRE (above),
+``pure_ekf`` (one update on every IC match) and ``iekf`` (iterated update
+on every IC match); an optional periodic gravity-direction update from a
+floor-plane fit closes the step.
 
 The reference's ``lax.scan`` is a Python loop that never reads a value
 back to the host. Its ``lax.cond`` on VO success is a ``torch.where``
@@ -19,9 +22,7 @@ over both branches; its ``lax.cond`` on the step number (the periodic
 attitude update) is decided from the loop's host-side index, so the
 512-hypothesis plane fit runs on 1 step in N only. JAX's threefry draws
 cannot be reproduced in torch, so every random draw is an input
-(``draws=``) or comes from a ``torch.Generator``. The warped-patch NCC
-matcher (``matcher="ncc_warp"``, per-frame intensity images) is not
-ported and raises ``NotImplementedError``.
+(``draws=``) or comes from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from pre3_tpu_torch.ekf.map_management import (
 from pre3_tpu_torch.ekf.measurement import (
     predict_measurements, search_ic_matches,
 )
+from pre3_tpu_torch.ekf.ncc_matching import search_ic_matches_ncc
 from pre3_tpu_torch.ekf.one_point_ransac import (
     one_point_ransac, rescue_hi_inliers,
 )
@@ -67,7 +69,7 @@ class SlamConfig(NamedTuple):
     max_adds: int = 8
     min_measured: int = 25  # re-init support target
     est_method: str = "1pre"  # "1pre" | "pure_ekf" | "iekf"
-    matcher: str = "desc"  # "desc" ("ncc_warp": not ported)
+    matcher: str = "desc"  # "desc" | "ncc_warp" (needs per-frame images)
     ncc_threshold: float = 0.60
     only_predict: bool = False  # dead-reckon, no update
     init_sampling: str = "topk"  # "topk" | "weighted"
@@ -141,15 +143,6 @@ class SlamTrajectory(NamedTuple):
     records: StepRecord  # fields have leading axis F-1
 
 
-def check_supported(cfg: SlamConfig, images=None) -> None:
-    """Raise for the options whose modules are not ported."""
-    if cfg.matcher == "ncc_warp" or images is not None:
-        raise NotImplementedError(
-            "the warped-patch NCC matcher (matcher='ncc_warp', per-frame "
-            "images; pre3_tpu/ekf/ncc_matching.py) is not ported to "
-            "pre3_tpu_torch yet")
-
-
 def _where_state(cond: torch.Tensor, a: EkfState, b: EkfState) -> EkfState:
     """Field-wise ``torch.where`` of two states (both branches computed)."""
     return EkfState(*(torch.where(cond, u, v) for u, v in zip(a, b)))
@@ -164,7 +157,7 @@ def slam_step(
     cfg: SlamConfig = SlamConfig(),
     draws: StepDraws | None = None,
     generator: torch.Generator | None = None,
-    image: torch.Tensor | None = None,
+    image: torch.Tensor | None = None,  # [H, W] — needed by ncc_warp
     xyz_img: torch.Tensor | None = None,  # [H, W, 3]
     host_step: int | None = None,
 ) -> tuple[EkfState, tuple[StepStats, StepRecord]]:
@@ -173,8 +166,11 @@ def slam_step(
     cfg.heading_update_every = N > 0 the step needs its xyz image and
     ``host_step``, its index as a host integer (``step`` lives on the
     device): where host_step % N == 0 the floor plane is fitted and the
-    attitude update applied."""
-    check_supported(cfg, image)
+    attitude update applied. With cfg.matcher="ncc_warp" the map is
+    matched by the warped-patch NCC scan of ``image``, and new features
+    record their init patches from it."""
+    if cfg.matcher == "ncc_warp" and image is None:
+        raise ValueError("matcher='ncc_warp' needs the intensity image")
     if cfg.heading_update_every > 0 and (xyz_img is None or host_step is None):
         raise ValueError("heading_update_every > 0 needs per-frame xyz "
                          "images and the step's host index (host_step)")
@@ -226,10 +222,19 @@ def slam_step(
         vo_ok = vo.ok
         vo_inliers = vo.n_inliers
 
-    # 2. measurement prediction + descriptor matching of the map
+    # 2. measurement prediction + matching of the map: descriptors, or
+    # the warped-patch correlation scan
     obs = predict_measurements(cam_model, state, std_z=cfg.std_z)
-    obs, state = search_ic_matches(obs, state, frame, ratio=cfg.match_ratio,
-                                   gate_first=cfg.match_gate_first)
+    if cfg.matcher == "ncc_warp":
+        # raw xyz has NaN background pixels: sanitize before sampling
+        obs = search_ic_matches_ncc(
+            cam_model, obs, state, image,
+            xyz_img=None if xyz_img is None else torch.nan_to_num(xyz_img),
+            ncc_threshold=cfg.ncc_threshold)
+    else:
+        obs, state = search_ic_matches(obs, state, frame,
+                                       ratio=cfg.match_ratio,
+                                       gate_first=cfg.match_gate_first)
 
     # 3./4. estimation method
     ms = cfg.max_update_slots if cfg.max_update_slots > 0 else None
@@ -278,8 +283,8 @@ def slam_step(
         n_measured=torch.sum(measured), max_adds=cfg.max_adds,
         min_measured=cfg.min_measured, std_pxl=cfg.std_z,
         depth_range_quadratic=cfg.depth_range_quadratic,
-        depth_range_d0=cfg.depth_range_d0, sampling=cfg.init_sampling,
-        gumbel=draws.add, generator=generator,
+        depth_range_d0=cfg.depth_range_d0, image=image,
+        sampling=cfg.init_sampling, gumbel=draws.add, generator=generator,
     )
 
     # periodic gravity-direction correction from a floor-plane fit, on the
@@ -317,6 +322,7 @@ def bootstrap_state(
     cfg: SlamConfig = SlamConfig(),
     n_landmarks: int = 64,
     xyz_img: torch.Tensor | None = None,  # [H, W, 3] frame 0
+    image: torch.Tensor | None = None,  # [H, W] frame 0 (init patches)
     plane_gumbel: torch.Tensor | None = None,
     add_gumbel: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
@@ -338,8 +344,8 @@ def bootstrap_state(
         cam_model, state0, first, obs0.h, zero, n_measured=zero,
         max_adds=cfg.max_adds * 4, min_measured=cfg.min_measured,
         std_pxl=cfg.std_z, depth_range_quadratic=cfg.depth_range_quadratic,
-        depth_range_d0=cfg.depth_range_d0, sampling=cfg.init_sampling,
-        gumbel=add_gumbel, generator=generator,
+        depth_range_d0=cfg.depth_range_d0, image=image,
+        sampling=cfg.init_sampling, gumbel=add_gumbel, generator=generator,
     )
 
 
@@ -358,6 +364,7 @@ def scan_steps(
     generator: torch.Generator | None = None,
     xyz_imgs: torch.Tensor | None = None,  # [C, H, W, 3]
     first_step: int | None = None,  # host index of steps[0]
+    images: torch.Tensor | None = None,  # [C, H, W], matcher='ncc_warp'
 ):
     """Run slam_step over a feature chunk; resumable (returns the carry).
     Returns (state, (t [C, 3], q [C, 4], stats, records))."""
@@ -381,6 +388,7 @@ def scan_steps(
         state, (st, rec) = slam_step(
             cam_model, state, cur, prev, steps[i], cfg, draws=step_draws,
             generator=generator,
+            image=None if images is None else images[i],
             xyz_img=None if xyz_imgs is None else xyz_imgs[i],
             host_step=host)
         ts.append(state.x[0:3])
@@ -400,12 +408,11 @@ def run_slam(
     n_landmarks: int = 64,
     draws: SlamDraws | None = None,
     generator: torch.Generator | None = None,
-    images: torch.Tensor | None = None,
+    images: torch.Tensor | None = None,  # [F, H, W], matcher='ncc_warp'
     xyz_imgs: torch.Tensor | None = None,  # [F, H, W, 3]
 ) -> SlamTrajectory:
     """Run EKF-SLAM over a stacked feature sequence. ``draws`` supplies
     the random draws; whatever it leaves None comes from ``generator``."""
-    check_supported(cfg, images)
     n_frames = feats.uv.shape[0]
     dev = feats.uv.device
     draws = SlamDraws(steps=StepDraws()) if draws is None else draws
@@ -413,6 +420,7 @@ def run_slam(
     state0 = bootstrap_state(
         cam_model, first, cfg, n_landmarks,
         xyz_img=None if xyz_imgs is None else xyz_imgs[0],
+        image=None if images is None else images[0],
         plane_gumbel=draws.plane, add_gumbel=draws.boot_add,
         generator=generator,
     )
@@ -422,6 +430,7 @@ def run_slam(
         cam_model, state0, first, rest, steps, cfg, draws=draws.steps,
         generator=generator,
         xyz_imgs=None if xyz_imgs is None else xyz_imgs[1:], first_step=1,
+        images=None if images is None else images[1:],
     )
     return SlamTrajectory(
         t=torch.cat([torch.zeros((1, 3), dtype=ts.dtype, device=dev), ts]),

@@ -34,8 +34,8 @@ class EkfState(NamedTuple):
     times_measured: torch.Tensor  # [K] int32
     init_frame: torch.Tensor  # [K] int32
     last_visible: torch.Tensor  # [K] int32
-    # Init-appearance record of the warped-patch NCC matcher (not ported:
-    # zero-filled and unused in descriptor-matching mode).
+    # Init-appearance record of the warped-patch NCC matcher (zero-filled
+    # and unused in descriptor-matching mode).
     init_patch: torch.Tensor  # [K, PB, PB] raw intensity patch at init
     init_uv: torch.Tensor  # [K, 2] pixel at init
     init_cam: torch.Tensor  # [K, 7] (t_w, q_wc) camera pose at init

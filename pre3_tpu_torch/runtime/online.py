@@ -19,7 +19,9 @@ same pipeline runs eagerly and the host never waits either:
 Random draws come from ``generator`` (a ``torch.Generator`` on the
 device, the port's counterpart of the reference's key) or, per call, from
 ``draws``. ``process_chunk`` runs C frames as one frontend batch and one
-``scan_steps``. Snapshots every ``snapshot_every`` steps
+``scan_steps``. Each step's ``StepRecord`` is kept on the device;
+``smooth()`` brings them to the host once and runs the keyframe BA
+backend over them. Snapshots every ``snapshot_every`` steps
 (``utils/checkpoint.py``) carry the generator's state, so a resumed run
 continues the same stream.
 """
@@ -35,8 +37,8 @@ import numpy as np
 import torch
 
 from pre3_tpu_torch.ekf.slam import (
-    SlamConfig, SlamDraws, StepDraws, StepStats, _frame, bootstrap_state,
-    check_supported, scan_steps, slam_step,
+    SlamConfig, SlamDraws, SlamTrajectory, StepDraws, StepRecord, StepStats,
+    _frame, bootstrap_state, scan_steps, slam_step,
 )
 from pre3_tpu_torch.ekf.state import EkfState
 from pre3_tpu_torch.frontend.pipeline import (
@@ -121,7 +123,6 @@ class OnlineSlam:
         sync_timing: bool = False,
         device: torch.device | str = "cuda",
     ) -> None:
-        check_supported(cfg)
         self.cam = cam
         self.cfg = cfg
         self.n_landmarks = n_landmarks
@@ -139,14 +140,21 @@ class OnlineSlam:
             self._extract = partial(extract_features_sift, **ek)
         else:
             raise ValueError(f"unknown extractor {extractor!r}")
-        # the periodic floor-plane attitude update needs the xyz image
-        self._needs_xyz = cfg.heading_update_every > 0
+        # the NCC matcher reads the intensity image (and samples the xyz
+        # image at its matches); the periodic floor-plane attitude update
+        # needs the xyz image on the descriptor path too
+        self._needs_image = cfg.matcher == "ncc_warp"
+        self._needs_xyz = self._needs_image or cfg.heading_update_every > 0
         self._upload = _Staging(self.device)
         # carry = (EkfState, step int32 [] on the device, previous frame's
         # Features); step_i is the same step as a host integer
         self._carry: tuple | None = None
         self.step_i = 0
         self.results: list[StepResult] = []
+        # each step's StepRecord as device tensors with a leading step axis
+        # (1 per frame, C per chunk): the smoother's input, as run_slam
+        # emits it
+        self._records: list[StepRecord] = []
 
     @property
     def state(self) -> EkfState | None:
@@ -173,16 +181,20 @@ class OnlineSlam:
                 boot = draws if draws is not None else SlamDraws(StepDraws())
                 state = bootstrap_state(
                     self.cam, feats, self.cfg, self.n_landmarks,
-                    xyz_img=xyz_d, plane_gumbel=boot.plane,
+                    xyz_img=xyz_d,
+                    image=img if self._needs_image else None,
+                    plane_gumbel=boot.plane,
                     add_gumbel=boot.boot_add, generator=self.generator)
                 step = torch.ones((), dtype=torch.int32, device=self.device)
                 res = StepResult(0, state.x[0:3], state.x[3:7], None)
             else:
-                state, (stats, _) = slam_step(
+                state, (stats, rec) = slam_step(
                     self.cam, state, feats, prev, step, self.cfg,
                     draws=draws, generator=self.generator,
+                    image=img if self._needs_image else None,
                     xyz_img=xyz_d if self._needs_xyz else None,
                     host_step=self.step_i)
+                self._records.append(StepRecord(*(x[None] for x in rec)))
                 step = step + 1
                 res = StepResult(self.step_i, state.x[0:3], state.x[3:7],
                                  stats)
@@ -206,11 +218,13 @@ class OnlineSlam:
             feats = self._extract(img, xyz_d, conf)
             steps = step + torch.arange(c, dtype=torch.int32,
                                         device=self.device)
-            state, (ts, qs, stats, _) = scan_steps(
+            state, (ts, qs, stats, recs) = scan_steps(
                 self.cam, state, prev, feats, steps, self.cfg, draws=draws,
                 generator=self.generator,
                 xyz_imgs=xyz_d if self._needs_xyz else None,
-                first_step=self.step_i)
+                first_step=self.step_i,
+                images=img if self._needs_image else None)
+            self._records.append(recs)
             self._carry = (state, step + c, _frame(feats, c - 1))
             if self.sync:
                 _synchronize(self.device)
@@ -305,13 +319,63 @@ class OnlineSlam:
         state, step, _ = self._carry
         self._carry = (state, step, feats)
 
-    def smooth(self, *args, **kwargs):
-        """The reference's fixed-lag smoother needs the keyframe, BA and
-        smoothing backend (``backend/{keyframes,ekf_ba,ba,smoothing}.py``),
-        which the port does not have yet."""
-        raise NotImplementedError(
-            "OnlineSlam.smooth needs backend/keyframes.py, ekf_ba.py, ba.py "
-            "and smoothing.py, which are not ported to pre3_tpu_torch yet")
+    # -- sliding-window smoothing -------------------------------------------
+
+    def _stacked_records(self) -> StepRecord:
+        """The recorded StepRecords stacked to numpy with leading axis
+        F-1 (row r is frame r+1, as run_slam's records): one copy to the
+        host."""
+        return StepRecord(*(torch.cat(xs).cpu().numpy()
+                            for xs in zip(*self._records)))
+
+    def smooth(
+        self,
+        window: int | None = None,
+        max_keyframes: int = 32,
+        iters: int = 8,
+        max_landmarks: int = 256,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Fixed-lag smoother over the streamed trajectory: keyframes are
+        selected inside the trailing ``window`` frames (None: the whole
+        history), a Schur-complement BA runs on the recorded filter-vetted
+        observations (``backend/ekf_ba.py``, as the offline path), and the
+        corrections are interpolated back onto every frame of the window;
+        frames before it are left as they are. Returns (t [F, 3],
+        q [F, 4]) as numpy. Synchronises: the trajectory and the records
+        come to the host once; the BA runs on this OnlineSlam's device.
+        Records are not checkpointed: after resume() the smoothable window
+        restarts."""
+        from pre3_tpu_torch.backend.ba import bundle_adjust
+        from pre3_tpu_torch.backend.ekf_ba import ba_problem_from_slam
+        from pre3_tpu_torch.backend.keyframes import select_keyframes
+        from pre3_tpu_torch.backend.smoothing import apply_ba_corrections
+
+        ts, qs = self.trajectory
+        f = len(ts)
+        if f < 3 or not self._records:
+            return ts, qs
+        records = self._stacked_records()
+        lo = max(0, f - window) if window else 0
+        dev = self.device
+        traj = SlamTrajectory(
+            t=torch.as_tensor(ts[lo:]).to(dev),
+            q=torch.as_tensor(qs[lo:]).to(dev), stats=None,
+            records=StepRecord(*(x[lo:] for x in records)))
+        ks = select_keyframes(traj.t, traj.q,
+                              torch.ones(f - lo, dtype=torch.bool, device=dev),
+                              max_keyframes=max_keyframes)
+        prob = ba_problem_from_slam(traj, ks.indices.cpu().numpy(),
+                                    ks.valid.cpu().numpy(),
+                                    max_landmarks=max_landmarks)
+        if prob is None:
+            return ts, qs
+        res = bundle_adjust(self.cam, prob, iters=iters)
+        sm_t, sm_q = apply_ba_corrections(traj.t, traj.q, ks.indices,
+                                          ks.valid, res.kf_t, res.kf_q)
+        out_t, out_q = ts.copy(), qs.copy()
+        out_t[lo:] = sm_t.cpu().numpy()
+        out_q[lo:] = sm_q.cpu().numpy()
+        return out_t, out_q
 
     # -- views ---------------------------------------------------------------
 

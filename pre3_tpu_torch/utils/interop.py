@@ -5,11 +5,13 @@ draws, poses, the EKF state and trajectories. These helpers turn the JAX
 package's NamedTuples, given as numpy arrays (``Features``, ``Matches``,
 ``Pose``, ``Trajectory``, ``VoStep``, ``RigidFit``, ``RansacResult``,
 ``EkfState``, ``Observations``, ``StepStats``, ``StepRecord``,
-``SlamTrajectory``, ``Camera``, ``SiftFeatures``), into the port's
-NamedTuples of tensors on a given device (the card unless the caller
-names another), and back into numpy. Matching is by type name and fields,
-so this module imports nothing of the JAX package. A ``Camera`` keeps its
-intrinsics as Python numbers on the port's side.
+``SlamTrajectory``, ``Camera``, ``SiftFeatures``, and the backend's
+``BaProblem``, ``BaResult``, ``KeyframeSet`` and ``TrackTable``), into
+the port's NamedTuples of tensors on a given device (the card unless the
+caller names another), and back into numpy. The loop-closure factors
+(``lcp``) are a plain tuple of arrays and convert as one. Matching is by
+type name and fields, so this module imports nothing of the JAX package.
+A ``Camera`` keeps its intrinsics as Python numbers on the port's side.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from pre3_tpu_torch.backend.ba import BaProblem, BaResult
+from pre3_tpu_torch.backend.keyframes import KeyframeSet
+from pre3_tpu_torch.backend.tracks import TrackTable
 from pre3_tpu_torch.ekf.measurement import Observations
 from pre3_tpu_torch.ekf.slam import SlamTrajectory, StepRecord, StepStats
 from pre3_tpu_torch.ekf.state import EkfState
@@ -35,7 +40,8 @@ _PORT_TYPES: dict[tuple[str, tuple[str, ...]], type] = {
     (cls.__name__, cls._fields): cls
     for cls in (Features, Matches, Pose, Trajectory, VoStep, RansacResult,
                 RigidFit, EkfState, Observations, StepStats, StepRecord,
-                SlamTrajectory, Camera, SiftFeatures)
+                SlamTrajectory, Camera, SiftFeatures, BaProblem, BaResult,
+                KeyframeSet, TrackTable)
 }
 
 

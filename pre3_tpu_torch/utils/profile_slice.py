@@ -1,22 +1,25 @@
-"""Where the flagship's time goes on one card: the SIFT slice under
-``torch.profiler``.
+"""Where the EKF slices' time goes on one card, under ``torch.profiler``.
 
-Three parts of config #3, each on the smoke run's corridor (832 points,
-noise 0.004, 1.5 cm per frame) cut to ``--frames`` frames:
+Parts of config #3, and config #2, each on the smoke run's corridor (832
+points, noise 0.004, 1.5 cm per frame) cut to ``--frames`` frames:
 
   frontend  ``extract_features_sift`` over all frames at once;
   run_slam  ``run_slam`` at K=256 with bench.py's CFG on those features;
   online    ``OnlineSlam(extractor="sift", n_landmarks=64)`` (the
-            __graft_entry__ configuration), ``process()`` per frame.
+            __graft_entry__ configuration), ``process()`` per frame;
+  ncc       config #2: ``run_slam`` at K=256 on FAST features with the
+            warped-patch NCC matcher, every frame's intensity and xyz
+            image given (bench.py ``fast_ncc_pipeline``).
 
 For each: host time per frame unprofiled (host clock around a
 synchronize, median of ``--reps``), and from one profiled run the kernel
 launches per frame (runtime launch calls), the device busy time per frame
 (kernels, copies and fills on the card) and the device's idle share,
 1 − busy / unprofiled time. Then the kernels that take the most device
-time in run_slam. Run it from the root of a checkout:
+time in the last EKF part profiled. Run it from the root of a checkout:
 
-    python3 -m pre3_tpu_torch.utils.profile_slice --frames 48
+    python3 -m pre3_tpu_torch.utils.profile_slice --frames 48 \
+        [--parts frontend,run_slam,online,ncc]
 
 At 48 frames it takes ~14 minutes on an H100, most of it the profiler
 collecting ~5000 launches per EKF step; the default 24 frames, about
@@ -37,7 +40,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from pre3_tpu_torch.data.synthetic import render_sequence
 from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
-from pre3_tpu_torch.frontend.pipeline import extract_features_sift
+from pre3_tpu_torch.frontend.pipeline import (
+    extract_features, extract_features_sift,
+)
 from pre3_tpu_torch.geometry.camera import sr4000_camera
 from pre3_tpu_torch.runtime.online import OnlineSlam
 
@@ -88,7 +93,9 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--parts", default="frontend,run_slam,online")
     args = ap.parse_args()
+    parts = args.parts.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -108,10 +115,14 @@ def main() -> None:
     run_slam(cam, type(feats)(*(x[:8] for x in feats)), cfg, n_landmarks=256,
              generator=torch.Generator("cuda").manual_seed(0))
 
-    report("frontend", lambda: extract_features_sift(*im), n, args.reps)
-    avgs = report("run_slam", lambda: run_slam(
-        cam, feats, cfg, n_landmarks=256,
-        generator=torch.Generator("cuda").manual_seed(1)), n - 1, args.reps)
+    avgs = None
+    if "frontend" in parts:
+        report("frontend", lambda: extract_features_sift(*im), n, args.reps)
+    if "run_slam" in parts:
+        avgs = report("run_slam", lambda: run_slam(
+            cam, feats, cfg, n_landmarks=256,
+            generator=torch.Generator("cuda").manual_seed(1)), n - 1,
+            args.reps)
 
     def online():
         slam = OnlineSlam(cam, cfg=SlamConfig(min_measured=50),
@@ -119,12 +130,23 @@ def main() -> None:
         for i in range(n):
             slam.process(host[0][i], host[1][i], host[2][i])
 
-    report("online", online, n, args.reps)
+    if "online" in parts:
+        report("online", online, n, args.reps)
+    if "ncc" in parts:
+        fast = extract_features(*im, threshold=0.05, max_features=256)
+        ncc_cfg = cfg._replace(matcher="ncc_warp", match_ratio=1.3)
+        avgs = report("ncc", lambda: run_slam(
+            cam, fast, ncc_cfg, n_landmarks=256,
+            generator=torch.Generator("cuda").manual_seed(1), images=im[0],
+            xyz_imgs=im[1]), n - 1, args.reps)
+    if avgs is None:
+        return
 
     kernels = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                      key=lambda a: -a.self_device_time_total)
     total = sum(a.self_device_time_total for a in kernels)
-    print(f"[run_slam] top {args.top} of {len(kernels)} device ops by time "
+    last = "ncc" if "ncc" in parts else "run_slam"
+    print(f"[{last}] top {args.top} of {len(kernels)} device ops by time "
           f"(share of {total / 1e3:.1f} ms):", flush=True)
     for a in kernels[:args.top]:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms "

@@ -1,0 +1,206 @@
+"""Config #2's map matcher, port vs JAX reference: the warped-patch NCC
+scan (ekf/ncc_matching.py) and what it reads — the raw init patches
+recorded by add_features(image=...) and their warp into the current view
+(frontend/patch_warp.py) — on the same numpy-seeded or rendered inputs.
+
+Tolerances: patch values and NCC inputs are f32 sums of a few products,
+so they agree to ~1e-6; the reference builds its candidate grid with
+jnp.linspace, which rounds up to 6e-8 off -1 + 2i/(G-1) (the port uses
+the correctly rounded value), so a matched pixel may differ by 6e-8 of a
+≤ 20 px radius. Every discrete output (ic, the chosen candidate) is
+exact.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pre3_tpu.data.synthetic import render_sequence
+from pre3_tpu.ekf.map_management import add_features as jadd_features
+from pre3_tpu.ekf.measurement import predict_measurements as jpredict
+from pre3_tpu.ekf.ncc_matching import search_ic_matches_ncc as jsearch
+from pre3_tpu.ekf.state import init_state as jinit_state
+from pre3_tpu.frontend import patch_warp as jpw
+from pre3_tpu.frontend.pipeline import Features as JFeatures
+from pre3_tpu.geometry.camera import project as jproject
+from pre3_tpu.geometry.camera import sr4000_camera as jcamera
+from pre3_tpu.geometry.quaternion import r2q as jr2q
+from pre3_tpu_torch.ekf.map_management import add_features
+from pre3_tpu_torch.ekf.ncc_matching import grid_unit, search_ic_matches_ncc
+from pre3_tpu_torch.frontend import patch_warp as tpw
+from pre3_tpu_torch.frontend.pipeline import extract_features
+from pre3_tpu_torch.geometry.camera import sr4000_camera as tcamera
+from pre3_tpu_torch.utils.interop import to_numpy, to_torch
+
+K, KF, PB = 32, 64, 21
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """Two rendered frames, their FAST features (the port's, as numpy,
+    fed to both packages) and the camera-1 pose in camera 0's frame."""
+    frames, traj, _ = render_sequence(n_frames=2, n_points=300, noise=0.004)
+    stack = [torch.as_tensor(np.stack([getattr(f, a) for f in frames]))
+             for a in ("intensity", "xyz", "confidence")]
+    feats = to_numpy(extract_features(*stack, threshold=0.05,
+                                      max_features=KF))
+    t1 = (traj.t[1] - traj.t[0]) @ traj.r[0]
+    q1 = np.asarray(jr2q(jnp.asarray(traj.r[0].T @ traj.r[1])))
+    images = [np.stack([getattr(f, a) for f in frames])
+              for a in ("intensity", "xyz")]
+    images[1] = np.nan_to_num(images[1])
+    return feats, images, np.r_[t1, q1].astype(np.float32)
+
+
+def _frame(feats, i):
+    return JFeatures(*(x[i] for x in feats))
+
+
+def test_extract_raw_patches_matches_jax(scene):
+    """21×21 raw patches at random centres, borders included (clamped
+    bilinear reads): within 1e-6."""
+    _, (intensity, _), _ = scene
+    rng = np.random.default_rng(0)
+    uv = np.stack([rng.uniform(-3, 179, 40), rng.uniform(-3, 147, 40)],
+                  -1).astype(np.float32)
+    ref = np.asarray(jpw.extract_raw_patches(jnp.asarray(intensity[0]),
+                                             jnp.asarray(uv), size=PB))
+    got = tpw.extract_raw_patches(torch.as_tensor(intensity[0]),
+                                  torch.as_tensor(uv), size=PB).numpy()
+    assert got.shape == (40, PB, PB)
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+def _warp_problem(k: int, seed: int):
+    """Init and current camera poses, landmarks 2–4 m in front of the
+    init camera, their pixels in both views and random raw patches."""
+    rng = np.random.default_rng(seed)
+
+    def quat(scale):
+        q = np.r_[1.0, rng.normal(scale=scale, size=3)]
+        return (q / np.linalg.norm(q)).astype(np.float32)
+
+    init_cams = np.stack([np.r_[rng.normal(scale=0.05, size=3), quat(0.03)]
+                          for _ in range(k)]).astype(np.float32)
+    cur_cam = np.r_[rng.normal(scale=0.05, size=3), quat(0.03)].astype(
+        np.float32)
+    p_i = np.stack([rng.uniform(-0.8, 0.8, k), rng.uniform(-0.6, 0.6, k),
+                    rng.uniform(2.0, 4.0, k)], -1).astype(np.float32)
+    from pre3_tpu.geometry.quaternion import qconj, qrotate
+
+    lms = np.asarray(jax.vmap(qrotate)(jnp.asarray(init_cams[:, 3:]),
+                                       jnp.asarray(p_i))) + init_cams[:, :3]
+    cam = jcamera()
+    init_uv = np.asarray(jproject(cam, jnp.asarray(p_i)))
+    p_c = np.asarray(qrotate(qconj(jnp.asarray(cur_cam[3:]))[None],
+                             jnp.asarray(lms - cur_cam[:3])))
+    h_pred = np.asarray(jproject(cam, jnp.asarray(p_c))) + rng.normal(
+        scale=0.5, size=(k, 2))
+    patches = rng.uniform(0.0, 1.0, size=(k, PB, PB))
+    return [a.astype(np.float32) for a in
+            (patches, init_uv, init_cams, cur_cam, lms, h_pred)]
+
+
+def test_predict_patches_matches_jax():
+    """16 features, each with its own init pose: the warped, zero-mean,
+    unit-norm 11×11 appearance within 1e-5 of the reference's one-hot
+    contraction (the port gathers the same four taps), and the
+    single-feature form equal to its batch row."""
+    args = _warp_problem(16, seed=3)
+    ref = np.asarray(jax.jit(functools.partial(
+        jpw.predict_patches, jcamera()))(*map(jnp.asarray, args)))
+    targs = [torch.as_tensor(a) for a in args]
+    got = tpw.predict_patches(tcamera(), *targs).numpy()
+    assert got.shape == (16, 121)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+    one = tpw.predict_patch_appearance(
+        tcamera(), *(a[5] for a in targs[:3]), targs[3], targs[4][5],
+        targs[5][5]).numpy()
+    np.testing.assert_array_equal(one, got[5])
+
+
+def test_grid_unit_is_the_rounded_linspace():
+    """The candidate offsets are -1 + 2i/(G-1) correctly rounded to f32;
+    jnp.linspace is within 6e-8 of them."""
+    for g in (5, 13, 21):
+        got = grid_unit(g).numpy()
+        exact = (-1.0 + 2.0 * np.arange(g) / (g - 1)).astype(np.float32)
+        np.testing.assert_array_equal(got, exact)
+        assert np.abs(np.asarray(jnp.linspace(-1.0, 1.0, g)) - got).max() <= (
+            6e-8)
+
+
+@pytest.fixture(scope="module")
+def jax_map(scene):
+    """The reference's map of K slots bootstrapped from frame 0 with its
+    init patches recorded (add_features(image=...)), then moved to the
+    true frame-1 pose."""
+    feats, (intensity, _), pose1 = scene
+    st = jinit_state(n_landmarks=K, desc_dim=feats.desc.shape[-1])
+    added = jax.jit(functools.partial(
+        jadd_features, jcamera(), max_adds=K, min_measured=50))(
+        st, jax.tree.map(jnp.asarray, _frame(feats, 0)),
+        jnp.zeros((K, 2)), jnp.asarray(0, jnp.int32),
+        jnp.asarray(0, jnp.int32), image=jnp.asarray(intensity[0]))
+    return jax.tree.map(np.asarray, added), pose1
+
+
+def test_add_features_records_init_patches(scene, jax_map):
+    """add_features(image=...) records each new landmark's 21×21 raw
+    patch, init pixel and init pose as the reference does (patches within
+    1e-6, pixels and poses equal), and the rest of the state as before;
+    without an image init_patch stays as it was."""
+    feats, (intensity, _), _ = scene
+    ref, _ = jax_map
+    tst = to_torch(jax.tree.map(np.asarray, jinit_state(
+        n_landmarks=K, desc_dim=feats.desc.shape[-1])), device="cpu")
+    frame = to_torch(_frame(feats, 0), device="cpu")
+    args = (tcamera(), tst, frame, torch.zeros(K, 2),
+            torch.tensor(0, dtype=torch.int32), torch.tensor(0))
+    got = to_numpy(add_features(*args, max_adds=K, min_measured=50,
+                                image=torch.as_tensor(intensity[0])))
+    assert ref.active.sum() > 10 and np.abs(ref.init_patch).sum() > 0
+    for name in ref._fields:
+        a, b = getattr(got, name), getattr(ref, name)
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-6, err_msg=name)
+    plain = add_features(*args, max_adds=K, min_measured=50)
+    assert torch.equal(plain.init_patch, tst.init_patch)
+    np.testing.assert_array_equal(plain.init_uv.numpy(), got.init_uv)
+
+
+def test_search_ic_matches_ncc_matches_jax(scene, jax_map):
+    """The NCC scan of frame 1 from the true pose, at the published
+    widths (grid 13, patch 11, threshold 0.60, gates 2–20 px): ic equal,
+    matched pixels within 2e-6 px, their xyz samples within 1e-5 m."""
+    _, (intensity, xyz), pose1 = scene
+    ref_map, _ = jax_map
+    st = ref_map._replace(x=ref_map.x.copy())
+    st.x[0:7] = pose1
+    jst = jax.tree.map(jnp.asarray, st)
+    obs = jax.jit(functools.partial(jpredict, jcamera()))(jst)
+    ref = jax.tree.map(np.asarray, jax.jit(functools.partial(
+        jsearch, jcamera()))(obs, jst, jnp.asarray(intensity[1]),
+                             xyz_img=jnp.asarray(xyz[1])))
+    got = to_numpy(search_ic_matches_ncc(
+        tcamera(), to_torch(jax.tree.map(np.asarray, obs), device="cpu"),
+        to_torch(st, device="cpu"), torch.as_tensor(intensity[1]),
+        xyz_img=torch.as_tensor(xyz[1])))
+    assert ref.ic.sum() >= 10
+    np.testing.assert_array_equal(got.ic, ref.ic)
+    np.testing.assert_allclose(got.z, ref.z, atol=2e-6)
+    np.testing.assert_allclose(got.z_xyz, ref.z_xyz, atol=1e-5)
+    # the other fields pass through untouched
+    np.testing.assert_array_equal(got.h, np.asarray(obs.h))
+    no_xyz = search_ic_matches_ncc(
+        tcamera(), to_torch(jax.tree.map(np.asarray, obs), device="cpu"),
+        to_torch(st, device="cpu"), torch.as_tensor(intensity[1]))
+    assert not no_xyz.z_xyz.any() and np.array_equal(no_xyz.ic.numpy(),
+                                                     got.ic)

@@ -1,8 +1,8 @@
 """The port's online streaming driver (runtime/online.py) and checkpoints
 (utils/checkpoint.py): per-frame and chunked streaming against the port's
 run_slam, snapshot/resume determinism, a JAX snapshot read by the port,
-and the JAX OnlineSlam against the port's with its key splits reproduced
-and injected."""
+and the JAX OnlineSlam against the port's, streaming and smooth(), with
+its key splits reproduced and injected."""
 
 import inspect
 
@@ -163,8 +163,6 @@ def test_snapshot_resume_deterministic(seq, tmp_path):
     ts_b, qs_b = b.trajectory
     np.testing.assert_allclose(ts_b, ts_a[4:], atol=1e-5)
     np.testing.assert_allclose(qs_b, qs_a[4:], atol=1e-5)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        b.smooth()
 
 
 def test_checkpoint_round_trip_and_jax_snapshot(tmp_path):
@@ -207,21 +205,22 @@ def test_entry_points_default_to_the_card():
 
 FAST_KW = {"threshold": 0.05, "max_features": 64}
 JCFG = dict(match_ratio=1.3, min_measured=50)
+# 10 frames at ~4 cm per frame: five keyframes for the smoother
+FAST_FRAMES, FAST_STEP_T = 10, 0.1
 
 
-def test_online_matches_jax(seq):
-    """The JAX OnlineSlam (its fused per-frame program) and the port's
-    over 5 frames, FAST frontend: the reference's key splits reproduced
-    (boot: fold_in(key, 3) for the plane fit, split for the add key;
-    each step: split, then slam_step's split into three) and injected.
-    Stats equal, poses within POSE_ATOL."""
-    frames, _ = seq
-    frames = frames[:5]
+@pytest.fixture(scope="module")
+def fast_online():
+    """The JAX OnlineSlam (its fused per-frame program) and the port's,
+    FAST frontend, over 10 frames: the reference's key splits reproduced
+    (boot: fold_in(key, 3) for the plane fit, split for the add key; each
+    step: split, then slam_step's split into three) and injected."""
+    frames, traj, _ = render_sequence(n_frames=FAST_FRAMES, n_points=300,
+                                      noise=0.004, step_t=FAST_STEP_T)
     key = jax.random.PRNGKey(1)
     ref = JOnlineSlam(jcamera(), cfg=jslam.SlamConfig(**JCFG), n_landmarks=K,
                       extractor_kwargs=FAST_KW, key=key)
     ref.run(frames, prefetch=1)
-    ref_t, ref_q = ref.trajectory
 
     cfg = tslam.SlamConfig(**JCFG)
     slam = OnlineSlam(tcamera(), cfg=cfg, n_landmarks=K,
@@ -239,6 +238,14 @@ def test_online_matches_jax(seq):
             vo=_gumbel(kv, (cfg.vo_batch, kf)),
             ransac=_gumbel(kr, (cfg.ransac_batch, pool_size(K, None))),
             add=_gumbel(ka, (kf,))))
+    return ref, slam, (traj.t - traj.t[0]) @ traj.r[0]
+
+
+def test_online_matches_jax(fast_online):
+    """The JAX OnlineSlam and the port's over 10 frames under the same
+    draws: stats equal, poses within POSE_ATOL."""
+    ref, slam, _ = fast_online
+    ref_t, ref_q = ref.trajectory
     ts, qs = slam.trajectory
     for r_ref, r_got in zip(ref.results[1:], slam.results[1:]):
         for name in tslam.StepStats._fields:
@@ -247,6 +254,28 @@ def test_online_matches_jax(seq):
     np.testing.assert_allclose(ts, ref_t, atol=POSE_ATOL)
     np.testing.assert_allclose(qs, ref_q, atol=POSE_ATOL)
     assert int(np.asarray(ref.results[1].stats.n_li)) > 5
+
+
+# smooth(): the filter trajectories differ by ~1e-6 and BA starts from
+# there (seen: 1.3e-6 after it); 2 LM iterations, each accepting its step
+# by a clear margin, so no accept/reject decision sits at f32 noise
+SMOOTH_ITERS, SMOOTH_TOL = 2, POSE_ATOL
+
+
+def test_smooth_matches_jax(fast_online):
+    """OnlineSlam.smooth() over the 10 streamed frames (keyframes, the
+    records → BA bridge, 2 LM iterations, corrections spread over every
+    frame) against the JAX OnlineSlam.smooth() on the same frames and
+    draws: within SMOOTH_TOL, and it moved the trajectory by centimetres
+    towards the ground truth."""
+    ref, slam, gt = fast_online
+    ref_t, ref_q = ref.smooth(iters=SMOOTH_ITERS)
+    got_t, got_q = slam.smooth(iters=SMOOTH_ITERS)
+    np.testing.assert_allclose(got_t, ref_t, atol=SMOOTH_TOL)
+    np.testing.assert_allclose(got_q, ref_q, atol=SMOOTH_TOL)
+    ts, _ = slam.trajectory
+    assert np.abs(got_t - ts).max() > 0.01
+    assert ate_rmse(got_t, gt, align=True) < ate_rmse(ts, gt, align=True)
 
 
 def test_stage_timer_and_device_trace(tmp_path):

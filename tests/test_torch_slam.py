@@ -1,9 +1,10 @@
 """The EKF-SLAM slice end to end, port vs JAX reference: one slam_step
 under several configurations (the iterated update and the periodic
 attitude update among them), a 10-frame run_slam with the plane-fit
-orientation prior, and a SIFT-fed run_slam with the periodic attitude
-update, each with the reference's random draws reproduced from its keys
-and injected into the port.
+orientation prior, the same with the warped-patch NCC matcher (config
+#2) under three estimation options, and a SIFT-fed run_slam with the
+periodic attitude update, each with the reference's random draws
+reproduced from its keys and injected into the port.
 
 The reference's run_slam is one jitted program; it is compiled once, in
 a module fixture, and every test of the sequence reuses its result.
@@ -88,13 +89,13 @@ def seq():
         i, x, c, threshold=0.05, max_features=KF))(*stack))
     gt = (traj.t - traj.t[0]) @ traj.r[0]
     xyz_imgs = np.stack([_tilted_floor_xyz()] * N_FRAMES)
-    return feats, gt, xyz_imgs
+    return feats, gt, xyz_imgs, stack[0]
 
 
 @pytest.fixture(scope="module")
 def jax_run(seq):
     """The reference's run_slam, compiled once."""
-    feats, _, xyz_imgs = seq
+    feats, _, xyz_imgs, _ = seq
     out = jslam.run_slam(jcamera(), jax.tree.map(jnp.asarray, feats),
                          jax.random.PRNGKey(2), cfg=jslam.SlamConfig(**CFG),
                          n_landmarks=K, xyz_imgs=jnp.asarray(xyz_imgs))
@@ -105,7 +106,7 @@ def test_run_slam_matches_jax(seq, jax_run):
     """10 frames, K=32, the plane-fit prior on: per-step stats equal
     (visible, IC, li, hi, active, VO ok/inliers, overflow), the measured
     sets equal, poses within POSE_ATOL, ATE of a tracking filter."""
-    feats, gt, xyz_imgs = seq
+    feats, gt, xyz_imgs, _ = seq
     cfg = tslam.SlamConfig(**CFG)
     draws = _run_draws(jax.random.PRNGKey(2), cfg, N_FRAMES, with_plane=True)
     got = to_numpy(tslam.run_slam(tcamera(), to_torch(feats, device="cpu"),
@@ -132,7 +133,7 @@ def test_run_slam_generator_draws(seq):
     """Without injected draws a torch.Generator supplies them: the filter
     still tracks (aligned ATE < 5 cm), and the same seed repeats exactly.
     Neither draws nor a generator is an error."""
-    feats, gt, _ = seq
+    feats, gt, _, _ = seq
     tf = to_torch(feats, device="cpu")
     cfg = tslam.SlamConfig(**CFG)
     runs = [tslam.run_slam(tcamera(), tf, cfg, n_landmarks=K,
@@ -178,7 +179,7 @@ def test_slam_step_matches_jax(seq, boot_state, name):
     each option the port carries: x within 2e-6 (the v/ω states, VO's
     translation / 0.1 s, within 2e-5), P within 1e-8 (entries ≤ 1e-3),
     every mask, counter and stat exact."""
-    feats, _, _ = seq
+    feats = seq[0]
     jcfg = jslam.SlamConfig(**STEP_CASES[name])
     cfg = tslam.SlamConfig(**STEP_CASES[name])
     heading = cfg.heading_update_every > 0
@@ -222,31 +223,47 @@ def test_slam_step_matches_jax(seq, boot_state, name):
         assert np.abs(off.x[3:7] - got_st.x[3:7]).max() > 1e-4
 
 
+# The name dates from when the port raised on these options; it is kept so
+# that each case's pass/fail history carries on under the same id.
 @pytest.mark.parametrize("option", [
     dict(matcher="ncc_warp"), dict(matcher="ncc_warp", est_method="iekf"),
     dict(matcher="ncc_warp", heading_update_every=4),
 ])
 def test_unported_options_raise(seq, option):
-    """The warped-patch NCC matcher (with any estimation option) and
-    per-frame intensity images are not ported: they raise
-    NotImplementedError before any work — never run something else."""
-    feats, _, xyz_imgs = seq
-    tf = to_torch(feats, device="cpu")
-    cfg = tslam.SlamConfig(**option)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tslam.run_slam(tcamera(), tf, cfg, n_landmarks=K, generator=gen,
-                       xyz_imgs=torch.as_tensor(xyz_imgs))
-    state = tslam.bootstrap_state(tcamera(), type(tf)(*(x[0] for x in tf)),
-                                  n_landmarks=K, generator=gen)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tslam.slam_step(tcamera(), state, type(tf)(*(x[1] for x in tf)),
-                        type(tf)(*(x[0] for x in tf)),
-                        torch.tensor(1, dtype=torch.int32), cfg,
-                        generator=gen)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tslam.run_slam(tcamera(), tf, tslam.SlamConfig(), n_landmarks=K,
-                       generator=gen, images=torch.zeros(N_FRAMES, 144, 176))
+    """run_slam with the warped-patch NCC matcher (config #2): every
+    frame's intensity image given (init patches at bootstrap and on every
+    add, the NCC scan per step) and its xyz image (the plane-fit prior;
+    the attitude update's fits), under the 1-point RANSAC update, the
+    iterated update and the attitude update every 4 steps. 10 frames,
+    K=32, the reference's draws injected: per-step stats and the
+    measured sets equal, poses within POSE_ATOL (the NCC grid's offsets
+    differ from jnp.linspace's by ≤ 6e-8, which moves a matched pixel by
+    ≤ 1.2e-6 px)."""
+    feats, gt, xyz_imgs, intensity = seq
+    cfg = tslam.SlamConfig(**CFG, **option)
+    ref = jax.tree.map(np.asarray, jslam.run_slam(
+        jcamera(), jax.tree.map(jnp.asarray, feats), jax.random.PRNGKey(6),
+        cfg=jslam.SlamConfig(**CFG, **option), n_landmarks=K,
+        images=jnp.asarray(intensity), xyz_imgs=jnp.asarray(xyz_imgs)))
+    draws = _run_draws(jax.random.PRNGKey(6), cfg, N_FRAMES, with_plane=True)
+    got = to_numpy(tslam.run_slam(
+        tcamera(), to_torch(feats, device="cpu"), cfg, n_landmarks=K,
+        draws=draws, images=torch.as_tensor(intensity),
+        xyz_imgs=torch.as_tensor(xyz_imgs)))
+    for name in ref.stats._fields:
+        np.testing.assert_array_equal(getattr(got.stats, name),
+                                      getattr(ref.stats, name), err_msg=name)
+    for name in ("measured", "visible", "init_frame"):
+        np.testing.assert_array_equal(getattr(got.records, name),
+                                      getattr(ref.records, name),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.t, ref.t, atol=POSE_ATOL)
+    np.testing.assert_allclose(got.q, ref.q, atol=POSE_ATOL)
+    assert ref.stats.n_ic.mean() > 10 and ref.stats.n_li.mean() > 5
+    assert ate_rmse(got.t, gt, align=True) < 0.05
+    with pytest.raises(ValueError, match="needs the intensity image"):
+        tslam.run_slam(tcamera(), to_torch(feats, device="cpu"), cfg,
+                       n_landmarks=K, draws=draws)
 
 
 SIFT_FRAMES, SIFT_KF = 6, 288

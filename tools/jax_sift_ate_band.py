@@ -1,19 +1,38 @@
-"""ATE band of config #3 (SIFT → run_slam) from the JAX package on the CPU.
+"""ATE bands of the port's slices from the JAX package on the CPU.
 
-The port's smoke run holds its SIFT EKF slice to the JAX reference's
-accuracy on the same sequence and configuration: bench.py's corridor
-(256 frames, 832 points, noise 0.004, x from -1.8 to 5.64), the SIFT
-frontend's exact branch, K = 256 landmark slots and
-SlamConfig(min_measured=50, max_update_slots=96), no xyz images (no plane
-fit). This script runs it for keys 0..6 and prints the ATE (no alignment)
-of each, as bench.py computes its ``slam_ate_rmse_m``.
+The port's smoke run holds its slices to the JAX reference's accuracy on
+the same sequences and configurations. This script runs one of them for
+keys 0..N-1 and prints the ATE (no alignment) of each, as bench.py
+computes it. ``--config`` picks the slice:
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu python3 tools/jax_sift_ate_band.py [--keys 7]
+  sift  config #3 as bench.py headlines it: bench.py's corridor (256
+        frames, 832 points, noise 0.004, x from -1.8 to 5.64), the SIFT
+        frontend's exact branch, K = 256 landmark slots and
+        SlamConfig(min_measured=50, max_update_slots=96), no xyz images
+        (no plane fit); ``slam_ate_rmse_m``;
+  ncc   config #2 (bench.py ``fast_ncc_pipeline``): the same corridor,
+        FAST at threshold 0.05 with 256 features, the warped-patch NCC
+        matcher (ratio 1.3) with every frame's intensity and xyz image
+        given (plane-fit prior on); ``slam_fast_ncc_ate_rmse_m``;
+  ba    config #4 on the sift run: select_keyframes(max_keyframes=64) →
+        ba_problem_from_slam(max_landmarks=512) → bundle_adjust(iters=10)
+        → apply_ba_corrections; the post-BA ATE (``ba_ate_rmse_m``);
+  loop  bench.py's out-and-back scene (256 frames, 600 points, x from
+        -1.8 to 3.72, loop=True) through the sift run: the SLAM ATE, the
+        post-BA ATE of bench.py's chain (``loop_ba_ate_rmse_m``), and the
+        post-BA ATE with the keyframe tracks merged
+        (``ba_problem_from_slam(kf_feats=...)``) and the mined keyframe
+        loop closures added (``mine_keyframe_loop_closures`` +
+        ``merge_lcp``, tools/measure_lcp.py's chain).
 
-from the root of a checkout (about 5 minutes on a CPU).
+Run it from the root of a checkout:
 
-The frontend runs one frame per call (one compiled program), so the peak
-memory stays that of a single frame's SIFT plus the scan.
+    PYTHONPATH=. JAX_PLATFORMS=cpu python3 tools/jax_sift_ate_band.py \\
+        [--config sift|ncc|ba|loop] [--keys 7]
+
+(a few minutes per configuration on a CPU). The SIFT frontend runs one
+frame per call (one compiled program), so the peak memory stays that of
+a single frame's SIFT plus the scan.
 """
 
 from __future__ import annotations
@@ -29,50 +48,139 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from pre3_tpu.backend.ba import bundle_adjust  # noqa: E402
+from pre3_tpu.backend.ekf_ba import ba_problem_from_slam  # noqa: E402
+from pre3_tpu.backend.keyframes import select_keyframes  # noqa: E402
+from pre3_tpu.backend.loop_detect import (  # noqa: E402
+    merge_lcp, mine_keyframe_loop_closures,
+)
+from pre3_tpu.backend.smoothing import apply_ba_corrections  # noqa: E402
 from pre3_tpu.data.synthetic import render_sequence  # noqa: E402
 from pre3_tpu.ekf.slam import SlamConfig, run_slam  # noqa: E402
 from pre3_tpu.eval.trajectory import ate_rmse  # noqa: E402
-from pre3_tpu.frontend.pipeline import extract_features_sift  # noqa: E402
+from pre3_tpu.frontend.pipeline import (  # noqa: E402
+    extract_features, extract_features_sift,
+)
 from pre3_tpu.geometry.camera import sr4000_camera  # noqa: E402
 
 N_FRAMES, N_LANDMARKS = 256, 256
 CFG = SlamConfig(min_measured=50, max_update_slots=96)
+CFG_NCC = CFG._replace(matcher="ncc_warp", match_ratio=1.3)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--keys", type=int, default=7)
-    args = ap.parse_args()
-    jax.config.update("jax_platforms", "cpu")
-    drift = 0.03 * 0.5 * N_FRAMES
-    frames, traj, _ = render_sequence(n_frames=N_FRAMES, n_points=832,
-                                      noise=0.004, x_range=(-1.8, drift + 1.8))
+def _scene(loop: bool):
+    if loop:
+        drift = 0.03 * 0.5 * (N_FRAMES // 2)
+        frames, traj, _ = render_sequence(
+            n_frames=N_FRAMES, n_points=600, noise=0.004,
+            x_range=(-1.8, drift + 1.8), loop=True)
+    else:
+        drift = 0.03 * 0.5 * N_FRAMES
+        frames, traj, _ = render_sequence(
+            n_frames=N_FRAMES, n_points=832, noise=0.004,
+            x_range=(-1.8, drift + 1.8))
     gt = (traj.t - traj.t[0]) @ traj.r[0]
+    return frames, gt
+
+
+def _sift(frames):
     fe = jax.jit(extract_features_sift)
     t0 = time.perf_counter()
     per_frame = [jax.tree.map(np.asarray, fe(
         jnp.asarray(f.intensity), jnp.asarray(np.nan_to_num(f.xyz)),
         jnp.asarray(f.confidence))) for f in frames]
     feats = jax.tree.map(lambda *xs: jnp.asarray(np.stack(xs)), *per_frame)
-    print(f"frontend: {time.perf_counter() - t0:.1f} s for {N_FRAMES} "
+    print(f"frontend: {time.perf_counter() - t0:.1f} s for {len(frames)} "
           f"frames, valid keypoints per frame "
           f"{float(np.asarray(feats.valid).sum(-1).mean()):.1f}", flush=True)
-    run = jax.jit(lambda f, k: run_slam(sr4000_camera(), f, k, cfg=CFG,
-                                        n_landmarks=N_LANDMARKS))
-    ates = []
+    return feats
+
+
+def _stats(out) -> str:
+    s = out.stats
+    return (f"mean n_ic {float(np.asarray(s.n_ic).mean()):.2f}, n_li "
+            f"{float(np.asarray(s.n_li).mean()):.2f}, n_active "
+            f"{float(np.asarray(s.n_active).mean()):.2f}")
+
+
+def _post_ba(out, gt, kf_feats=None, mine=False):
+    """bench.py's config-#4 chain on a run_slam output; with ``kf_feats``
+    the keyframe tracks are merged, with ``mine`` the mined keyframe loop
+    closures are added. Returns (post-BA ATE, description)."""
+    cam = sr4000_camera()
+    ks = select_keyframes(out.t, out.q, jnp.ones(N_FRAMES, bool),
+                          max_keyframes=64)
+    idx, valid = np.asarray(ks.indices), np.asarray(ks.valid)
+    prob = ba_problem_from_slam(
+        out, idx, valid, max_landmarks=512,
+        kf_feats=None if kf_feats is None else jax.tree.map(
+            lambda x: x[idx], kf_feats))
+    n_lcp = 0 if prob.lcp_i is None else int(prob.lcp_i.shape[0])
+    n_mined = 0
+    if mine:
+        mined = mine_keyframe_loop_closures(
+            jax.tree.map(lambda x: x[idx], kf_feats),
+            np.asarray(out.t)[idx], np.asarray(out.q)[idx], valid)
+        n_mined = 0 if mined is None else len(mined[0])
+        prob = merge_lcp(prob, mined)
+    res = bundle_adjust(cam, prob, iters=10)
+    sm_t, _ = apply_ba_corrections(out.t, out.q, ks.indices, ks.valid,
+                                   res.kf_t, res.kf_q)
+    ate = float(ate_rmse(np.asarray(sm_t), gt, align=False))
+    m, l = np.asarray(prob.mask).shape
+    desc = (f"M {m} (valid {int(valid.sum())}), L {l}, observations "
+            f"{int(np.asarray(prob.mask).sum())}, lcp {n_lcp} + mined "
+            f"{n_mined}, cost {float(res.cost[0]):.4f} -> "
+            f"{float(res.cost[-1]):.4f}")
+    return ate, desc
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("sift", "ncc", "ba", "loop"),
+                    default="sift")
+    ap.add_argument("--keys", type=int, default=7)
+    args = ap.parse_args()
+    jax.config.update("jax_platforms", "cpu")
+    cam = sr4000_camera()
+    frames, gt = _scene(loop=args.config == "loop")
+    if args.config == "ncc":
+        intensity = jnp.asarray(np.stack([f.intensity for f in frames]))
+        xyz = jnp.asarray(np.nan_to_num(np.stack([f.xyz for f in frames])))
+        conf = jnp.asarray(np.stack([f.confidence for f in frames]))
+        feats = jax.jit(jax.vmap(lambda i, x, c: extract_features(
+            i, x, c, threshold=0.05, max_features=256)))(intensity, xyz, conf)
+        run = jax.jit(lambda f, k: run_slam(
+            cam, f, k, cfg=CFG_NCC, n_landmarks=N_LANDMARKS,
+            images=intensity, xyz_imgs=xyz))
+    else:
+        feats = _sift(frames)
+        run = jax.jit(lambda f, k: run_slam(cam, f, k, cfg=CFG,
+                                            n_landmarks=N_LANDMARKS))
+    columns: dict[str, list[float]] = {}
     for key in range(args.keys):
         t0 = time.perf_counter()
         out = run(feats, jax.random.PRNGKey(key))
         ate = float(ate_rmse(np.asarray(out.t), gt, align=False))
-        ates.append(ate)
-        s = out.stats
-        print(f"key {key}: ATE {ate:.4f} m, mean n_ic "
-              f"{float(np.asarray(s.n_ic).mean()):.2f}, n_li "
-              f"{float(np.asarray(s.n_li).mean()):.2f}, n_active "
-              f"{float(np.asarray(s.n_active).mean()):.2f} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    print(f"ATE over keys 0..{args.keys - 1}: min {min(ates):.4f}, max "
-          f"{max(ates):.4f}, mean {np.mean(ates):.4f} m", flush=True)
+        row = {"slam": ate}
+        print(f"key {key}: SLAM ATE {ate:.4f} m, {_stats(out)}", flush=True)
+        if args.config in ("ba", "loop"):
+            row["post-BA"], desc = _post_ba(out, gt)
+            print(f"key {key}: post-BA ATE {row['post-BA']:.4f} m ({desc})",
+                  flush=True)
+        if args.config == "loop":
+            row["post-BA tracks+mined"], desc = _post_ba(
+                out, gt, kf_feats=feats, mine=True)
+            print(f"key {key}: post-BA ATE with tracks and mined loop "
+                  f"closures {row['post-BA tracks+mined']:.4f} m ({desc})",
+                  flush=True)
+        print(f"key {key}: {time.perf_counter() - t0:.1f} s", flush=True)
+        for name, v in row.items():
+            columns.setdefault(name, []).append(v)
+    for name, v in columns.items():
+        print(f"{args.config} {name} ATE over keys 0..{args.keys - 1}: min "
+              f"{min(v):.4f}, max {max(v):.4f}, mean {np.mean(v):.4f} m "
+              f"({', '.join(f'{x:.4f}' for x in v)})", flush=True)
 
 
 if __name__ == "__main__":
