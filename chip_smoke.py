@@ -19,7 +19,12 @@ CUDA kernel of those paths against its plain PyTorch version:
     ``ba_problem_from_slam`` (with ``kf_feats``: keyframe tracks, K2 once
     per keyframe) → ``mine_keyframe_loop_closures`` (K2 + K1 per pair) →
     ``merge_lcp`` → ``bundle_adjust`` → ``apply_ba_corrections``, and
-    ``OnlineSlam.smooth``.
+    ``OnlineSlam.smooth``;
+  * the host-side paths: the ``.dat`` directory through the native
+    decoder into ``OnlineSlam`` and the tracks BA
+    (``python3 -m pre3_tpu_torch.examples.run_dat_pipeline``), the cached
+    offline keyframing (``...examples.run_offline_keyframing``), replay
+    from a snapshot, and the PnP/ICP solvers.
 
 Run it from the root of a checkout:
 
@@ -68,7 +73,23 @@ device, and imports nothing of JAX. Phases:
  16. loop       — bench.py's out-and-back scene through the SIFT
                   run_slam, the keyframe BA, keyframe tracks (K2 per
                   keyframe) and mined loop closures (K2 + K1 per pair):
-                  SLAM and post-BA ATE.
+                  SLAM and post-BA ATE; the keyframe tracks built on the
+                  card and on the CPU: their spawn masks and post-BA ATEs;
+ 17. dat        — the native decoder built from native/sr4000_loader.cc,
+                  against the numpy parser, and its decode rates; then
+                  examples/run_dat_pipeline.py's chain (48 frames as .dat
+                  → native decode in OnlineSlam.run's prefetch thread →
+                  OnlineSlam → keyframes → tracks BA): online and post-BA
+                  ATE, launches, ms per frame;
+ 18. offline-kf — examples/run_offline_keyframing.py cold, then warm on
+                  the same caches: the warm keyframe search launches
+                  nothing and repeats the cold one to the bit; KeyFrames/;
+ 19. replay     — a 16-frame run_slam snapshotted at step 7 and replayed
+                  from the snapshot: equal to the uninterrupted run to the
+                  bit; feature_performance, summarize_stats, the map as
+                  PLY;
+ 20. pnp-icp    — EPnP, DLS-PnP, ICP and GICP on a corridor frame pair,
+                  on the card and on the CPU, against the pair's VO.
 
 Each phase prints its seconds (``[time]`` lines).
 
@@ -80,9 +101,11 @@ script exits non-zero without printing a result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -196,6 +219,35 @@ MINE_MAX_PAIRS = 16  # mine_keyframe_loop_closures' default budget
 LOOP_ATE_CENTER, LOOP_ATE_HALF_WIDTH = 0.113, 0.072
 LOOP_BA_ATE_CENTER, LOOP_BA_ATE_HALF_WIDTH = 0.083, 0.053
 LOOP_MINED_ATE_CENTER, LOOP_MINED_ATE_HALF_WIDTH = 0.132, 0.15
+
+# Phase 16, the track table's zero rows: the post-BA ATE with keyframe
+# tracks (no mined closures) on the card and on the CPU is held to the
+# band of the loop's post-BA with tracks and mined closures.
+
+# Phase 17 (examples/run_dat_pipeline.py, 48 frames, K=64, FAST 128):
+# the JAX reference's chain on the CPU over keys 0..6
+# (tools/jax_sift_ate_band.py --config dat) gives an online ATE of
+# 0.0257–0.0258 m and a post-BA ATE of 0.0228 m on every key (PERF.md §2):
+# the draws barely move this short, easy sequence. The bands, 0.026 ±
+# 0.008 and 0.023 ± 0.008 m, are wide against that spread and narrow
+# against a fault: dead-reckoned VO alone drifts several cm in 48 frames.
+DAT_FRAMES, DAT_PAIRS = 48, 47
+DAT_ATE_CENTER, DAT_ATE_HALF_WIDTH = 0.026, 0.008
+DAT_BA_ATE_CENTER, DAT_BA_ATE_HALF_WIDTH = 0.023, 0.008
+DAT_KEYFRAMES = 16  # select_keyframes(max_keyframes=16): K2 per slot
+DAT_CHECK_FRAMES = 8  # decoded natively and by numpy, held to 1 ulp
+# Phase 18: examples/run_offline_keyframing.py, 24 frames. The port on
+# the CPU gives VO 0.0427 m and post-BA 0.0174 m; the smoke holds both
+# below 0.1 m (a sanity bound: the run has no JAX band).
+OFFLINE_ATE_MAX = 0.1
+# Phase 19: 16 frames, K=64, snapshot after step 7.
+REPLAY_FRAMES, REPLAY_SNAPSHOT = 16, 7
+# Phase 20: card vs CPU on the same inputs. tests/test_torch_pnp_icp.py
+# holds the port to the JAX reference at 1e-4 in r and t on 40–230
+# points; over 2048 points (ICP/GICP) a nearest neighbour near a tie may
+# differ between the two devices, so the bound is 1e-3.
+PNP_ICP_TOL = 1e-3
+ICP_POINTS = 2048
 
 # K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
 # is below this relative gap may legitimately resolve either way.
@@ -417,8 +469,9 @@ def build_kernels(names):
 
 def check_k1():
     """K1 vs its plain version at every path's shape (VO (1024, 256), the
-    EKF slices' (512, 256) and (512, 288), loop mining's (1024, 288)) and
-    the corner cases; timings at the same shapes."""
+    EKF slices' and the offline keyframing's (512, 256), (512, 288), loop
+    mining's (1024, 288), the .dat path's (512, 128)) and the corner
+    cases; timings at the same shapes."""
     from pre3_tpu_torch.ops.ransac_score import (
         _lib, residuals_torch, score_hypotheses, score_hypotheses_torch,
     )
@@ -428,6 +481,7 @@ def check_k1():
         ("slam-512x288", 512, 288, 1, False),
         ("ekf-512x256", 512, 256, 6, False),
         ("mine-1024x288", 1024, 288, 17, False),
+        ("dat-512x128", 512, 128, 21, False),
         ("ragged-1000x250", 1000, 250, 2, False),
         ("n1-64x1", 64, 1, 3, False),
         ("all-invalid-128x256", 128, 256, 4, True),
@@ -469,7 +523,8 @@ def check_k1():
           "equal to the eager call")
     timings = {}
     for name, b, n in (("1024x256", 1024, 256), ("512x256", 512, 256),
-                       ("512x288", 512, 288), ("1024x288", 1024, 288)):
+                       ("512x288", 512, 288), ("1024x288", 1024, 288),
+                       ("512x128", 512, 128)):
         args = scorer_problem(b, n, 10)
         t = dict(device_ms=device_ms(lambda: score_hypotheses(*args)),
                  plain_ms=device_ms(lambda: score_hypotheses_torch(*args)),
@@ -525,8 +580,9 @@ def check_k2():
     tracks' table with its zero, inactive rows among them) and the corner
     cases, those of the cluster's column split among them; graph replay
     vs eager; timings at the slices' shapes (256²×121, 288²×128,
-    256×288×128 and the keyframe tracks' 512×288×128) and at 4096² and
-    8192², which no path of the repo reaches."""
+    256×288×128, the keyframe tracks' 512×288×128, the .dat path's
+    128²×121 and 64×128×121) and at 4096² and 8192², which no path of the
+    repo reaches."""
     from pre3_tpu_torch.ops.matching import (
         BIG, K2_RANKS, _best_two, _launch_k2, _lib, _pairwise_dist2,
         match_descriptors, match_descriptors_k2,
@@ -537,6 +593,8 @@ def check_k2():
         ("sift-256x288-d128", 256, 288, 128, 1),
         ("sift-vo-288x288-d128", 288, 288, 128, 15),
         ("tracks-512x288-d128", 512, 288, 128, 16),
+        ("dat-128x128-d121", 128, 128, 121, 22),
+        ("dat-map-64x128-d121", 64, 128, 121, 23),
         ("ragged-1000x777-d121", 1000, 777, 121, 2),
         ("one-1x1-d121", 1, 1, 121, 3),
         ("map-4096x4096-d128", 4096, 4096, 128, 4),
@@ -650,6 +708,8 @@ def check_k2():
                             ("288x288-d128", 288, 288, 128),
                             ("256x288-d128", 256, 288, 128),
                             ("512x288-d128", 512, 288, 128),
+                            ("128x128-d121", 128, 128, 121),
+                            ("64x128-d121", 64, 128, 121),
                             ("4096x4096-d128", 4096, 4096, 128),
                             ("8192x8192-d128", 8192, 8192, 128)):
         d1, d2, v1, v2 = matcher_problem(n1, n2, d, 11)
@@ -1327,7 +1387,446 @@ def loop_phase():
         if abs(ate - center) > half:
             raise AssertionError(f"loop {name} ATE {ate:.4f} m outside "
                                  f"{center} ± {half}")
+    zero_rows_phase(out, feats, ks, gt)
     return k2_tracks, (k1_mine, k2_mine)
+
+
+def recorded_tracks(fn):
+    """Run ``fn`` with backend/tracks.py's matcher and spawn mask
+    recorded: per keyframe, the table's active rows, each row's best
+    feature (index) and the spawn-blocking ``used`` mask."""
+    from pre3_tpu_torch.backend import tracks
+
+    rec = []
+    match, used = tracks.match_descriptors_auto, tracks.used_features
+
+    def match_rec(d1, d2, valid1=None, valid2=None, ratio=1.5):
+        rec.append({"active": valid1.cpu()})
+        return match(d1, d2, valid1=valid1, valid2=valid2, ratio=ratio)
+
+    def used_rec(index, matched, n):
+        out = used(index, matched, n)
+        rec[-1].update(index=index.cpu(), used=out.cpu())
+        return out
+
+    tracks.match_descriptors_auto, tracks.used_features = match_rec, used_rec
+    try:
+        result = fn()
+    finally:
+        tracks.match_descriptors_auto, tracks.used_features = match, used
+    return result, rec
+
+
+def winners(index: torch.Tensor, n: int) -> torch.Tensor:
+    """[n] the highest table row naming each feature, -1 for none (the
+    row whose ``matched`` flag decides ``used``)."""
+    rows = torch.arange(index.shape[0])
+    return torch.full((n,), -1, dtype=rows.dtype).scatter_reduce(
+        0, index, rows, reduce="amax")
+
+
+def zero_rows_phase(out, feats, ks, gt):
+    """Phase 16's close-out of the track table's zero rows: the keyframe
+    tracks and their BA built on the card and on the CPU from the same
+    run_slam output (no draws on this path). Until the two tables part,
+    every feature whose spawn mask (``used``) differs must be one that an
+    inactive, zero row decides on either device, and they may part only
+    after such a difference; both post-BA ATEs stay in band."""
+    from pre3_tpu_torch.ekf.slam import SlamTrajectory, StepRecord, StepStats
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.frontend.pipeline import Features
+
+    idx = ks.indices.long()
+    kf_feats = Features(*(x[idx] for x in feats))
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    out_cpu = SlamTrajectory(t=out.t.cpu(), q=out.q.cpu(),
+                             stats=StepStats(*map(cpu, out.stats)),
+                             records=StepRecord(*map(cpu, out.records)))
+    runs = {}
+    for dev, o, kf in (("card", out, kf_feats),
+                       ("CPU", out_cpu, Features(*map(cpu, kf_feats)))):
+        (ks_d, prob), rec = recorded_tracks(lambda: ba_chain(o, kf))
+        _, sm_t = ba_solve(o, ks_d, prob)
+        runs[dev] = (rec, ate_rmse(sm_t.cpu().numpy(), gt, align=False))
+    (rec_g, ate_g), (rec_c, ate_c) = runs["card"], runs["CPU"]
+    # keyframe by keyframe while the two tables hold the same active rows:
+    # once a spawn differs, the tables differ and so does every later match
+    n_diff = n_zero = n_zero_rows_index = n_active_index = 0
+    parted = None
+    for i, (g, c) in enumerate(zip(rec_g, rec_c)):
+        if not torch.equal(g["active"], c["active"]):
+            parted = i
+            break
+        n = g["used"].shape[0]
+        diff = g["used"] != c["used"]
+        inactive = ~g["active"]
+        by_zero = torch.zeros(n, dtype=torch.bool)
+        for w in (winners(g["index"], n), winners(c["index"], n)):
+            by_zero |= (w >= 0) & inactive[w.clamp(min=0)]
+        n_diff += int(diff.sum())
+        n_zero += int((diff & by_zero).sum())
+        moved = g["index"] != c["index"]
+        n_zero_rows_index += int(moved[inactive].sum())
+        n_active_index += int(moved[~inactive].sum())
+    phase("loop", f"zero rows: {len(rec_g)} keyframes, the tables equal "
+          f"through keyframe {len(rec_g) if parted is None else parted}; "
+          f"until then zero rows naming another feature on the card than "
+          f"on the CPU {n_zero_rows_index}, active rows {n_active_index}; "
+          f"spawn-mask features differing {n_diff}, of them decided by a "
+          f"zero row {n_zero}; post-BA ATE with tracks: card {ate_g:.4f} "
+          f"m, CPU {ate_c:.4f} m (band {LOOP_MINED_ATE_CENTER} ± "
+          f"{LOOP_MINED_ATE_HALF_WIDTH})")
+    if n_zero != n_diff or (parted is not None and not n_diff):
+        raise AssertionError("tracks: the card and the CPU part on a "
+                             "feature no zero row decides")
+    for name, ate in (("card", ate_g), ("CPU", ate_c)):
+        if abs(ate - LOOP_MINED_ATE_CENTER) > LOOP_MINED_ATE_HALF_WIDTH:
+            raise AssertionError(f"tracks: {name} post-BA ATE {ate:.4f} m "
+                                 "out of band")
+
+
+def reset_launches():
+    from pre3_tpu_torch.ops.matching import match_descriptors_k2
+    from pre3_tpu_torch.ops.ransac_score import score_hypotheses
+
+    score_hypotheses.launches = 0
+    match_descriptors_k2.launches = 0
+
+
+def read_launches() -> tuple[int, int]:
+    from pre3_tpu_torch.ops.matching import match_descriptors_k2
+    from pre3_tpu_torch.ops.ransac_score import score_hypotheses
+
+    return score_hypotheses.launches, match_descriptors_k2.launches
+
+
+def max_ulp(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest distance in f32 ulps between two arrays (NaNs must agree)."""
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError("NaN layouts differ")
+    ia = np.nan_to_num(a).view(np.int32).astype(np.int64)
+    ib = np.nan_to_num(b).view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max(initial=0))
+
+
+def dat_phase(work: Path):
+    """Phase 17: the native decoder, built in this run from
+    native/sr4000_loader.cc into build/native/, against the numpy parser
+    and timed beside it; then examples/run_dat_pipeline.run on the card
+    (48 frames exported as .dat, decoded natively in OnlineSlam.run's
+    prefetch thread, OnlineSlam with K1 + K2 per pair and K2 on the map,
+    keyframes, tracks BA with K2 per keyframe slot). Returns (K1, K2)
+    launches of that run."""
+    from pre3_tpu_torch.data import native_loader
+    from pre3_tpu_torch.data.export import export_dat_sequence
+    from pre3_tpu_torch.data.sr4000 import list_sequence, read_frame
+    from pre3_tpu_torch.data.synthetic import render_sequence
+    from pre3_tpu_torch.examples import run_dat_pipeline as ex
+
+    lib = native_loader.library_path()
+    lib.unlink(missing_ok=True)  # so that this run builds it
+    t0 = time.perf_counter()
+    built = native_loader.native_available()
+    secs = time.perf_counter() - t0
+    if not built or native_loader.loaded_library() != lib:
+        raise AssertionError(f"dat: the native decoder built at {lib} is "
+                             "not the one loaded")
+    phase("dat", f"native decoder built from native/sr4000_loader.cc in "
+          f"{secs:.2f} s: {lib.relative_to(ROOT)} (loaded; "
+          f"flags {' '.join(native_loader.CXX_FLAGS)})")
+
+    data_dir, out_dir = work / "data", work / "out"
+    t0 = time.perf_counter()
+    frames, traj, _ = render_sequence(n_frames=DAT_FRAMES, n_points=400,
+                                      noise=0.004)
+    export_dat_sequence(frames, str(data_dir))  # as run() renders it
+    np.save(data_dir / "gt_t.npy", (traj.t - traj.t[0]) @ traj.r[0])
+    paths = list_sequence(str(data_dir))
+    t_export = time.perf_counter() - t0
+    n_chk = DAT_CHECK_FRAMES
+    t0 = time.perf_counter()
+    ref = [read_frame(p) for p in paths[:n_chk]]
+    t_numpy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = [native_loader.read_frame_native(p) for p in paths]
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = native_loader.read_sequence_native(paths)
+    t_batch = time.perf_counter() - t0
+    ulps = max(max_ulp(getattr(a, f), getattr(b, f))
+               for a, b in zip(single[:n_chk], ref)
+               for f in ("intensity", "xyz", "confidence"))
+    same_batch = all(np.array_equal(getattr(a, f), getattr(b, f),
+                                    equal_nan=True)
+                     for a, b in zip(batch, single)
+                     for f in ("intensity", "xyz", "confidence"))
+    phase("dat", f"{DAT_FRAMES} frames rendered and exported as .dat in "
+          f"{t_export:.1f} s; decode frames/s: numpy parser "
+          f"{n_chk / t_numpy:.1f} (over {n_chk}), native one by one "
+          f"{len(paths) / t_single:.1f}, native batch threaded "
+          f"{len(paths) / t_batch:.1f} ({os.cpu_count()} host cores); native "
+          f"vs numpy on {n_chk} frames: max {ulps} ulp; batch equal to "
+          f"one by one {same_batch}")
+    if ulps > 1 or not same_batch or any(
+            a.timestamp != b.timestamp for a, b in zip(single, ref)):
+        raise AssertionError("dat: the native decoder disagrees")
+
+    class TimedSlam(ex.OnlineSlam):
+        """OnlineSlam whose run() is timed up to a synchronize."""
+
+        def run(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().run(*args, **kwargs)
+            torch.cuda.synchronize()
+            TimedSlam.seconds = time.perf_counter() - t0
+            TimedSlam.timer = self.timer
+            return out
+
+    ex.OnlineSlam = TimedSlam
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        ate, ate_ba = ex.run(str(data_dir), str(out_dir), n_frames=DAT_FRAMES,
+                             device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        k1, k2 = read_launches()
+    finally:
+        ex.OnlineSlam = ex.OnlineSlam.__mro__[1]
+    stages = TimedSlam.timer.summary()
+    wait = stages.get("decode_wait", {}).get("total_s", 0.0)
+    saved = np.load(out_dir / "trajectory.npz")
+    phase("dat", f"run_dat_pipeline: {elapsed:.2f} s in all; OnlineSlam.run "
+          f"{TimedSlam.seconds:.2f} s, {1e3 * TimedSlam.seconds / DAT_FRAMES:.1f}"
+          f" ms per frame (decode wait {1e3 * wait / DAT_FRAMES:.2f} ms per "
+          f"frame); K1 launches {k1}, K2 launches {k2} ({DAT_PAIRS} pairs, "
+          f"{DAT_KEYFRAMES} keyframe slots); online ATE {ate:.4f} m (band "
+          f"{DAT_ATE_CENTER} ± {DAT_ATE_HALF_WIDTH}), post-BA ATE "
+          f"{ate_ba:.4f} m (band {DAT_BA_ATE_CENTER} ± "
+          f"{DAT_BA_ATE_HALF_WIDTH})")
+    if k1 != DAT_PAIRS or k2 != 2 * DAT_PAIRS + DAT_KEYFRAMES:
+        raise AssertionError(f"dat: K1 {k1}, K2 {k2} launches; expected "
+                             f"{DAT_PAIRS} and {2 * DAT_PAIRS + DAT_KEYFRAMES}")
+    if saved["t"].shape != (DAT_FRAMES, 3) or not np.isfinite(
+            saved["t_ba"]).all():
+        raise AssertionError("dat: the trajectory dump is malformed")
+    for name, v, c, h in (("online", ate, DAT_ATE_CENTER, DAT_ATE_HALF_WIDTH),
+                          ("post-BA", ate_ba, DAT_BA_ATE_CENTER,
+                           DAT_BA_ATE_HALF_WIDTH)):
+        if abs(v - c) > h:
+            raise AssertionError(f"dat: {name} ATE {v:.4f} m outside {c} ± "
+                                 f"{h}")
+    return k1, k2
+
+
+def offline_kf_phase(work: Path):
+    """Phase 18: examples/run_offline_keyframing.main cold, then warm on
+    the same work directory. The warm keyframe search reads every pair
+    from VoCache: it launches neither kernel and returns the cold pass's
+    keyframes, VO-call count and increments to the bit. Returns the
+    (K1, K2) launches of the keyframe search, cold and warm."""
+    from pre3_tpu_torch.examples import run_offline_keyframing as ex
+
+    find = ex.find_keyframes_vo
+    counts = []
+
+    def counted(*args, **kwargs):
+        reset_launches()
+        out = find(*args, **kwargs)
+        counts.append(read_launches())
+        return out
+
+    ex.find_keyframes_vo = counted
+    runs = []
+    try:
+        for _ in ("cold", "warm"):
+            t0 = time.perf_counter()
+            res = ex.main(str(work), device="cuda")
+            torch.cuda.synchronize()
+            runs.append((res, time.perf_counter() - t0))
+    finally:
+        ex.find_keyframes_vo = find
+    (cold, t_cold), (warm, t_warm) = runs
+    kc, kw = cold["keyframes"], warm["keyframes"]
+    same = (np.array_equal(kc.indices, kw.indices)
+            and kc.n_vo_calls == kw.n_vo_calls
+            and np.array_equal(kc.delta_t, kw.delta_t)
+            and np.array_equal(kc.delta_q, kw.delta_q))
+    kdir = Path(cold["keyframe_dir"])
+    n = len(kc.indices)
+    dats = sorted(p.name for p in kdir.glob("d1_*.dat"))
+    npzs = sorted(p.name for p in kdir.glob("features_*.npz"))
+    manifest = json.loads((kdir / "manifest.json").read_text())
+    phase("offline-kf", f"cold {t_cold:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in cold["seconds"].items())
+          + f"), warm {t_warm:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in warm["seconds"].items())
+          + f"); keyframes {kc.indices.tolist()} from {kc.n_vo_calls} VO "
+          f"calls; K1/K2 launches in the keyframe search: cold "
+          f"{counts[0][0]}/{counts[0][1]}, warm {counts[1][0]}/{counts[1][1]}"
+          f"; warm equal to cold {same}; KeyFrames/: {len(dats)} .dat, "
+          f"{len(npzs)} features npz, manifest of {len(manifest['original_indices'])}"
+          f"; ATE VO {cold['ate_vo']:.4f} m, post-BA {cold['ate_ba']:.4f} m "
+          f"(warm {warm['ate_ba']:.4f} m)")
+    if counts[0] != (kc.n_vo_calls, kc.n_vo_calls) or counts[1] != (0, 0):
+        raise AssertionError(f"offline-kf: launches {counts}")
+    if not same or n < 2:
+        raise AssertionError("offline-kf: the warm pass differs from the cold")
+    if dats != [f"d1_{i + 1:04d}.dat" for i in range(n)] or len(npzs) != n or (
+            manifest["original_indices"] != kc.indices.tolist()):
+        raise AssertionError("offline-kf: KeyFrames/ is incomplete")
+    if not (cold["ate_vo"] < OFFLINE_ATE_MAX and cold["ate_ba"] < OFFLINE_ATE_MAX):
+        raise AssertionError("offline-kf: ATE above the sanity bound")
+    return counts
+
+
+def replay_phase(work: Path):
+    """Phase 19: a 16-frame FAST run_slam (K=64) on the card; the same
+    run stopped after step 7, snapshotted with its generator state
+    (save_state(generator=)) and replayed by replay_sequence: poses and
+    final state equal to the uninterrupted run's to the bit. Then
+    feature_performance, summarize_stats and export_map_ply."""
+    from pre3_tpu_torch.ekf.slam import (
+        SlamConfig, _frame, bootstrap_state, run_slam, scan_steps,
+    )
+    from pre3_tpu_torch.eval.stats import summarize_stats
+    from pre3_tpu_torch.eval.viz import export_map_ply
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils.checkpoint import save_state
+    from pre3_tpu_torch.utils.replay import feature_performance, replay_sequence
+
+    n, k, snap = REPLAY_FRAMES, 64, REPLAY_SNAPSHOT
+    cam, cfg = sr4000_camera(), SlamConfig(min_measured=50, match_ratio=1.3)
+    images, _ = render(n, 300, None)
+    feats = features([torch.as_tensor(a, device="cuda") for a in images])
+    gen = lambda: torch.Generator(device="cuda").manual_seed(5)  # noqa: E731
+    steps = lambda a, b: torch.arange(a, b, dtype=torch.int32,  # noqa: E731
+                                      device="cuda")
+    chunk = lambda a, b: Features(*(x[a:b] for x in feats))  # noqa: E731
+
+    out = run_slam(cam, feats, cfg, n_landmarks=k, generator=gen())
+    g = gen()
+    state0 = bootstrap_state(cam, _frame(feats, 0), cfg, k, generator=g)
+    final, (ts, qs, _, _) = scan_steps(cam, state0, _frame(feats, 0),
+                                       chunk(1, n), steps(1, n), cfg,
+                                       generator=g, first_step=1)
+    g = gen()
+    state0 = bootstrap_state(cam, _frame(feats, 0), cfg, k, generator=g)
+    mid, _ = scan_steps(cam, state0, _frame(feats, 0), chunk(1, snap + 1),
+                        steps(1, snap + 1), cfg, generator=g, first_step=1)
+    path = work / "snapshot.npz"
+    save_state(str(path), mid, snap, generator=g)
+    t0 = time.perf_counter()
+    traj, rep_state, rep_stats = replay_sequence(cam, feats, str(path), cfg)
+    torch.cuda.synchronize()
+    t_rep = time.perf_counter() - t0
+    rep_t = np.stack([t for t, _ in traj])
+    rep_q = np.stack([q for _, q in traj])
+    run_equal = torch.equal(ts, out.t[1:]) and torch.equal(qs, out.q[1:])
+    poses_equal = (np.array_equal(rep_t, out.t[snap + 1:].cpu().numpy())
+                   and np.array_equal(rep_q, out.q[snap + 1:].cpu().numpy()))
+    state_equal = all(torch.equal(a, b) for a, b in zip(rep_state, final))
+    perf = feature_performance(rep_state, n - 1)
+    summary = summarize_stats(out.stats)
+    ply = work / "map.ply"
+    export_map_ply(str(ply), rep_state)
+    n_pts = len(ply.read_text().splitlines()) - 7
+    phase("replay", f"{n} frames, K={k}, snapshot after step {snap}: "
+          f"replayed {len(traj)} steps in {t_rep:.2f} s; poses equal to the "
+          f"uninterrupted run {poses_equal}, final state equal {state_equal} "
+          f"(run_slam equal to the stepped run {run_equal}); "
+          f"feature_performance: {len(perf.slot)} landmarks, track ratio "
+          f"{perf.track_ratio.min():.3f}–{perf.track_ratio.max():.3f}; "
+          f"summarize_stats: ic_matches_mean {summary['ic_matches_mean']:.2f}, "
+          f"li_inliers_mean {summary['li_inliers_mean']:.2f}, vo_ok_rate "
+          f"{summary['vo_ok_rate']:.3f}, map_size_final "
+          f"{summary['map_size_final']}; map PLY {n_pts} points")
+    if not (poses_equal and state_equal and run_equal) or len(
+            rep_stats) != n - 1 - snap:
+        raise AssertionError("replay: the replay differs from the run")
+    if not len(perf.slot) or perf.track_ratio.max() > 1.0 or (
+            n_pts != int(rep_state.active.sum())):
+        raise AssertionError("replay: feature performance or map export")
+
+
+def rotation_gap_deg(r, r_ref) -> float:
+    c = (float(torch.trace(r @ r_ref.T)) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def pnp_icp_phase(images):
+    """Phase 20: EPnP (from pixels) and DLS-PnP on one corridor pair's
+    FAST features (256 per frame): pixels of frame k against the points
+    of frame k−1 over the pair's RANSAC-VO inliers; ICP and GICP on 2048
+    valid points sampled from the two xyz images. Each solver on the card
+    and on the CPU from the same inputs; every one against the VO."""
+    from pre3_tpu_torch.geometry.camera import sr4000_camera, undistort
+    from pre3_tpu_torch.ops.matching import match_descriptors_auto
+    from pre3_tpu_torch.vo.icp import gicp, icp
+    from pre3_tpu_torch.vo.pnp import dls_pnp, epnp_camera
+    from pre3_tpu_torch.vo.ransac import ransac_rigid
+
+    k = 40
+    pair = [torch.as_tensor(a[k - 1:k + 1], device="cuda") for a in images]
+    f = features(pair)
+    m = match_descriptors_auto(f.desc[0], f.desc[1], valid1=f.valid[0],
+                               valid2=f.valid[1], ratio=1.3)
+    p1, p2 = f.xyz[0], f.xyz[1][m.index]
+    valid = m.accepted & f.valid[0] & f.valid[1][m.index]
+    vo = ransac_rigid(p1, p2, valid, batch=BATCH,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    uv = f.uv[1][m.index]
+    inl = vo.inliers
+    # the VO's T_c(k-1)_ck as the PnP's world(k-1)→camera(k) motion
+    r_vo, t_vo = vo.r.cpu(), vo.t.cpu()
+    r_pnp_ref, t_pnp_ref = r_vo.T, -(r_vo.T @ t_vo)
+
+    rng = np.random.default_rng(3)
+    clouds = []
+    for i in (0, 1):
+        xyz = images[1][k - 1 + i].reshape(-1, 3)
+        ok = np.flatnonzero(np.linalg.norm(xyz, axis=-1) > 0.4)
+        clouds.append(xyz[rng.choice(ok, ICP_POINTS, replace=False)])
+    pts = [torch.as_tensor(c, device="cuda") for c in clouds]
+    ones = torch.ones(ICP_POINTS, dtype=torch.bool, device="cuda")
+    cam = sr4000_camera()
+    # DLS-PnP takes normalized coordinates: the undistorted pixels
+    und = undistort(cam, uv)
+    uv_n = torch.stack([(und[:, 0] - cam.cx) / cam.f,
+                        (und[:, 1] - cam.cy) / cam.f], -1)
+    solvers = {  # name: (solver, inputs, points, the VO's motion)
+        "epnp_camera": (lambda a, b, c: epnp_camera(cam, a, b, c),
+                        (p1, uv, inl), int(inl.sum()), (r_pnp_ref, t_pnp_ref)),
+        "dls_pnp": (dls_pnp, (p1, uv_n, inl), int(inl.sum()),
+                    (r_pnp_ref, t_pnp_ref)),
+        "icp": (icp, (pts[0], pts[1], ones, ones), ICP_POINTS, (r_vo, t_vo)),
+        "gicp": (gicp, (pts[0], pts[1], ones, ones), ICP_POINTS, (r_vo, t_vo)),
+    }
+    worst = 0.0
+    for name, (fn, args, n_pts, (r_ref, t_ref)) in solvers.items():
+        fn(*args)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        ms_gpu = 1e3 * (time.perf_counter() - t0)
+        cpu_args = [a.cpu() for a in args]
+        t0 = time.perf_counter()
+        ref = fn(*cpu_args)
+        ms_cpu = 1e3 * (time.perf_counter() - t0)
+        dr = float((res.r.cpu() - ref.r).abs().max())
+        dt = float((res.t.cpu() - ref.t).abs().max())
+        worst = max(worst, dr, dt)
+        phase("pnp-icp", f"{name}: {n_pts} points; card {ms_gpu:.2f} ms, CPU {ms_cpu:.2f} ms per call; "
+              f"ok card {bool(res.ok)} CPU {bool(ref.ok)}; card vs CPU max "
+              f"|Δr| {dr:.2e}, |Δt| {dt:.2e} m (tolerance {PNP_ICP_TOL}); "
+              f"vs the pair's VO: rotation {rotation_gap_deg(res.r.cpu(), r_ref):.4f}"
+              f" deg, translation {float((res.t.cpu() - t_ref).norm()):.4f} m")
+        if bool(res.ok) != bool(ref.ok) or not bool(res.ok) or (
+                dr > PNP_ICP_TOL or dt > PNP_ICP_TOL):
+            raise AssertionError(f"pnp-icp: {name} disagrees card vs CPU")
+    return worst
 
 
 def main() -> None:
@@ -1394,13 +1893,24 @@ def main() -> None:
     # ---- 15./16. config #4: keyframe BA, tracks, loop mining ----
     timed("ba", ba_phase, sift_out, gt)
     tracks_k2, (mine_k1, mine_k2) = timed("loop", loop_phase)
+
+    # ---- 17.–20. the host-side paths: .dat, caches, replay, PnP/ICP ----
+    with tempfile.TemporaryDirectory(prefix="pre3_smoke_") as tmp:
+        tmp = Path(tmp)
+        dat_k1, dat_k2 = timed("dat", dat_phase, tmp / "dat")
+        (kf_k1, kf_k2), warm = timed("offline-kf", offline_kf_phase,
+                                     tmp / "keyframing")
+        timed("replay", replay_phase, tmp)
+    pnp_err = timed("pnp-icp", pnp_icp_phase, images)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     # times at the SIFT headline's shapes, whose run gave "launches";
     # "ms" is the graph-replayed device time. K2 runs at 288×288 (VO) and
     # 256×288 (map matching), once each per step. "paths" holds each
-    # path's launches, counted from 0 around that path's run.
+    # path's launches, counted from 0 around that path's run; the
+    # offline keyframing's are those of its keyframe search, cold (the
+    # warm pass launches none).
     k1_t = k1_times["512x288"]
     k2_vo, k2_map = k2_times["288x288-d128"], k2_times["256x288-d128"]
     print(json.dumps({"kernels": [
@@ -1410,9 +1920,11 @@ def main() -> None:
          "shape": "B=512, N=288", "launches": k1, "max_abs_err": k1_err,
          "ms": k1_t["device_ms"], **k1_t,
          "paths": {"sift_slice": k1, "ncc_slice": ncc_k1,
-                   "loop_mining": mine_k1},
+                   "loop_mining": mine_k1, "dat": dat_k1,
+                   "offline_kf": kf_k1, "offline_kf_warm": warm[0]},
          "loop_mining_time": {"shape": "B=1024, N=288",
-                              **k1_times["1024x288"]}},
+                              **k1_times["1024x288"]},
+         "dat_time": {"shape": "B=512, N=128", **k1_times["512x128"]}},
         {"name": "match_stream", "route": "cuda",
          "source": "pre3_tpu_torch/csrc/match_stream.cu",
          "replaces": "pre3_tpu/ops/matching.py:105",
@@ -1420,10 +1932,16 @@ def main() -> None:
          "launches": k2, "max_abs_err": k2_err, "ms": k2_vo["device_ms"],
          **k2_vo, "map_match": {"shape": "N1=256, N2=288, D=128", **k2_map},
          "paths": {"sift_slice": k2, "ncc_slice": ncc_k2,
-                   "tracks": tracks_k2, "loop_mining": mine_k2},
+                   "tracks": tracks_k2, "loop_mining": mine_k2,
+                   "dat": dat_k2, "offline_kf": kf_k2,
+                   "offline_kf_warm": warm[1]},
          "tracks_time": {"shape": "N1=512, N2=288, D=128",
-                         **k2_times["512x288-d128"]}},
-    ]}), flush=True)
+                         **k2_times["512x288-d128"]},
+         "dat_time": {"shape": "N1=N2=128, D=121",
+                      **k2_times["128x128-d121"]},
+         "dat_map_time": {"shape": "N1=64, N2=128, D=121",
+                          **k2_times["64x128-d121"]}},
+    ], "pnp_icp_card_vs_cpu": pnp_err}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

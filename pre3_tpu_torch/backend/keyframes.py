@@ -10,18 +10,27 @@ The reference's ``lax.scan`` is a sequential greedy pass over a [F, 7]
 trajectory; here it is a host loop over CPU tensors (one copy of the
 trajectory to the host), in f32 as the reference compares. The
 compaction that follows is the reference's stable sort.
+
+``find_keyframes_vo`` is the offline pass itself (VO against the last
+accepted keyframe, resumable through ``utils/cache.py::VoCache``), and
+``export_keyframe_dataset`` writes its KeyFrames/ mirror dataset.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from pre3_tpu_torch.data.sr4000 import list_sequence
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.quaternion import q2v, qconj, qprod
 from pre3_tpu_torch.vo.dead_reckoning import vo_pair
+from pre3_tpu_torch.vo.ransac import _draw_gumbel
 
 ROT_THRESH_DEG = 4.0
 TRANS_THRESH_M = 0.05
@@ -88,6 +97,7 @@ def find_keyframes_vo(
     feats: Features,  # stacked over frames: [F, ...]
     rot_thresh_deg: float = ROT_THRESH_DEG,
     trans_thresh_m: float = TRANS_THRESH_M,
+    vo_cache=None,
     batch: int = 1024,
     min_inliers: int = 8,
     gumbel: torch.Tensor | None = None,  # [F-1, batch, Kf]
@@ -98,10 +108,15 @@ def find_keyframes_vo(
     not chained frame to frame, and the frame is accepted when a_rot ≥ 4°
     or ‖T‖ ≥ 0.05 m with a valid solution; frames whose VO fails are
     skipped. A host loop over ``vo_pair`` that reads each pair's verdict
-    back, as the reference does. Candidate frame i's RANSAC draws are
-    ``gumbel[i-1]`` or come from ``generator``. (The reference's resumable
-    VO cache comes with ``utils/cache.py``, which is not ported.)"""
-    n_frames = feats.uv.shape[0]
+    back, as the reference does. ``vo_cache`` is a ``utils.cache.VoCache``
+    for resumable passes: a cached pair is read from disk and launches
+    nothing. Candidate frame i's RANSAC draws are ``gumbel[i-1]`` or are
+    drawn from ``generator`` for every candidate, cached or not, as the
+    reference splits its key for every candidate: a partly cached pass
+    gives each computed pair the draws an uncached pass would."""
+    if gumbel is None and generator is None:
+        raise ValueError("find_keyframes_vo needs gumbel noise or a generator")
+    n_frames, kf = feats.uv.shape[:2]
     rot_thresh = float(np.radians(rot_thresh_deg))
     frame = lambda i: Features(*(x[i] for x in feats))  # noqa: E731
     last = 0
@@ -110,10 +125,13 @@ def find_keyframes_vo(
     deltas_q = [np.array([1.0, 0, 0, 0], np.float32)]
     n_calls = 0
     for i in range(1, n_frames):
-        step = vo_pair(frame(last), frame(i),
-                       gumbel=None if gumbel is None else gumbel[i - 1],
-                       generator=generator, batch=batch,
-                       min_inliers=min_inliers)
+        g = gumbel[i - 1] if gumbel is not None else _draw_gumbel(
+            (batch, kf), generator, device=feats.uv.device)
+        compute = lambda g=g, last=last, i=i: vo_pair(  # noqa: E731
+            frame(last), frame(i), gumbel=g, batch=batch,
+            min_inliers=min_inliers)
+        step = (vo_cache.get(last, i, compute) if vo_cache is not None
+                else compute())
         n_calls += 1
         if not bool(step.ok):
             continue
@@ -129,3 +147,45 @@ def find_keyframes_vo(
         delta_t=np.stack(deltas_t), delta_q=np.stack(deltas_q),
         n_vo_calls=n_calls,
     )
+
+
+def export_keyframe_dataset(
+    indices,
+    out_dir: str,
+    src_dir: str | None = None,
+    feats: Features | None = None,
+    deltas: OfflineKeyframes | None = None,
+) -> str:
+    """Write the keyframe mirror dataset (the reference's renumber-and-copy
+    into KeyFrames/): accepted raw `d1_*.dat` frames from `src_dir` are
+    copied as `d1_%04d.dat` with NEW consecutive numbering, per-keyframe
+    features (if given, stacked over frames, on any device) are saved as
+    npz, and `manifest.json` records the new→original index map plus
+    inter-keyframe VO increments — the same files and keys as the
+    reference's. Returns out_dir."""
+    os.makedirs(out_dir, exist_ok=True)
+    indices = [int(i) for i in indices]
+    if src_dir is not None:
+        paths = list_sequence(src_dir)
+        for new, orig in enumerate(indices):
+            shutil.copyfile(
+                paths[orig], os.path.join(out_dir, f"d1_{new + 1:04d}.dat"))
+    if feats is not None:
+        sel = torch.as_tensor(indices, dtype=torch.int64)
+        host = Features(*(x[sel.to(x.device)].cpu().numpy() for x in feats))
+        for new in range(len(indices)):
+            with open(os.path.join(
+                    out_dir, f"features_{new + 1:04d}.npz"), "wb") as f:
+                np.savez(f, **{k: getattr(host, k)[new]
+                               for k in Features._fields})
+    manifest = {
+        "original_indices": indices,
+        "rot_thresh_deg": ROT_THRESH_DEG,
+        "trans_thresh_m": TRANS_THRESH_M,
+    }
+    if deltas is not None:
+        manifest["delta_t"] = deltas.delta_t.tolist()
+        manifest["delta_q"] = deltas.delta_q.tolist()
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return out_dir

@@ -19,6 +19,7 @@ check that would wait for the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pre3_tpu_torch.ekf.measurement import Observations
@@ -27,17 +28,21 @@ from pre3_tpu_torch.frontend.patch_warp import predict_patches
 from pre3_tpu_torch.frontend.patches import bilinear_sample
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.inverse_depth import inverse_depth_to_cartesian
+from pre3_tpu_torch.utils.device import to_device
 
 CHI2_2DOF_95 = 5.9915  # χ²(2, 0.95) — the reference's ellipse gate
 
 
 def grid_unit(grid: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """[G] candidate offsets in [-1, 1], each the correctly rounded
-    -1 + 2·i/(G-1). ``jnp.linspace`` rounds some of them otherwise (and
-    differently eagerly and under jit), by up to 6e-8: a candidate center
-    then lies up to 6e-8·r ≤ 1.2e-6 px from the reference's."""
-    i = torch.arange(grid, dtype=torch.float64, device=device)
-    return (-1.0 + 2.0 * i / (grid - 1)).to(dtype)
+    """[G] candidate offsets in [-1, 1], bit-equal to the reference's
+    ``jnp.linspace(-1, 1, G)`` under ``jit`` (how its ``run_slam`` runs
+    it): XLA multiplies by the f32 reciprocal of G-1 and blends the two
+    ends, s = i·f32(1/(G-1)), -1·(1-s) + s, each op rounded to f32. Built
+    in numpy f32 on the host and copied without a sync."""
+    one = np.float32(1.0)
+    s = np.arange(grid, dtype=np.float32) * (one / np.float32(grid - 1))
+    lin = np.float32(-1.0) * (one - s) + s
+    return to_device(torch.from_numpy(lin).to(dtype), device or "cpu")
 
 
 def search_ic_matches_ncc(

@@ -4,11 +4,10 @@ recorded by add_features(image=...) and their warp into the current view
 (frontend/patch_warp.py) — on the same numpy-seeded or rendered inputs.
 
 Tolerances: patch values and NCC inputs are f32 sums of a few products,
-so they agree to ~1e-6; the reference builds its candidate grid with
-jnp.linspace, which rounds up to 6e-8 off -1 + 2i/(G-1) (the port uses
-the correctly rounded value), so a matched pixel may differ by 6e-8 of a
-≤ 20 px radius. Every discrete output (ic, the chosen candidate) is
-exact.
+so they agree to ~1e-6; the candidate grid is bit-equal to the
+reference's jnp.linspace under jit (the form its run_slam runs; the eager
+call rounds differently), so every reference call here is jitted. Every
+discrete output (ic, the chosen candidate) is exact.
 """
 
 import functools
@@ -67,8 +66,9 @@ def test_extract_raw_patches_matches_jax(scene):
     rng = np.random.default_rng(0)
     uv = np.stack([rng.uniform(-3, 179, 40), rng.uniform(-3, 147, 40)],
                   -1).astype(np.float32)
-    ref = np.asarray(jpw.extract_raw_patches(jnp.asarray(intensity[0]),
-                                             jnp.asarray(uv), size=PB))
+    ref = np.asarray(jax.jit(functools.partial(
+        jpw.extract_raw_patches, size=PB))(jnp.asarray(intensity[0]),
+                                           jnp.asarray(uv)))
     got = tpw.extract_raw_patches(torch.as_tensor(intensity[0]),
                                   torch.as_tensor(uv), size=PB).numpy()
     assert got.shape == (40, PB, PB)
@@ -125,14 +125,23 @@ def test_predict_patches_matches_jax():
 
 
 def test_grid_unit_is_the_rounded_linspace():
-    """The candidate offsets are -1 + 2i/(G-1) correctly rounded to f32;
-    jnp.linspace is within 6e-8 of them."""
+    """The candidate offsets are jnp.linspace(-1, 1, G) as jit rounds it:
+    within 7.5e-8 of the correctly rounded -1 + 2i/(G-1), ends exact."""
     for g in (5, 13, 21):
         got = grid_unit(g).numpy()
         exact = (-1.0 + 2.0 * np.arange(g) / (g - 1)).astype(np.float32)
-        np.testing.assert_array_equal(got, exact)
-        assert np.abs(np.asarray(jnp.linspace(-1.0, 1.0, g)) - got).max() <= (
-            6e-8)
+        assert np.abs(exact - got).max() <= 7.5e-8
+        assert got[0] == -1.0 and got[-1] == 1.0
+
+
+def test_grid_unit_equals_jitted_linspace():
+    """grid_unit(G) equals the reference's jitted jnp.linspace(-1, 1, G)
+    bit for bit for every G from 2 to 39."""
+    for g in range(2, 40):
+        ref = np.asarray(jax.jit(lambda g=g: jnp.linspace(-1.0, 1.0, g))())
+        got = grid_unit(g).numpy()
+        assert got.dtype == np.float32
+        assert np.array_equal(got, ref), g
 
 
 @pytest.fixture(scope="module")

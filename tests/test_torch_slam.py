@@ -236,9 +236,8 @@ def test_unported_options_raise(seq, option):
     the attitude update's fits), under the 1-point RANSAC update, the
     iterated update and the attitude update every 4 steps. 10 frames,
     K=32, the reference's draws injected: per-step stats and the
-    measured sets equal, poses within POSE_ATOL (the NCC grid's offsets
-    differ from jnp.linspace's by ≤ 6e-8, which moves a matched pixel by
-    ≤ 1.2e-6 px)."""
+    measured sets equal, poses within POSE_ATOL (the NCC grid is bit-equal
+    to the reference's jitted jnp.linspace)."""
     feats, gt, xyz_imgs, intensity = seq
     cfg = tslam.SlamConfig(**CFG, **option)
     ref = jax.tree.map(np.asarray, jslam.run_slam(

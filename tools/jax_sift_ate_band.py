@@ -23,12 +23,19 @@ computes it. ``--config`` picks the slice:
         post-BA ATE with the keyframe tracks merged
         (``ba_problem_from_slam(kf_feats=...)``) and the mined keyframe
         loop closures added (``mine_keyframe_loop_closures`` +
-        ``merge_lcp``, tools/measure_lcp.py's chain).
+        ``merge_lcp``, tools/measure_lcp.py's chain);
+  dat   examples/run_dat_pipeline.py's chain with the key as its
+        OnlineSlam key: 48 frames (400 points, noise 0.004) exported as
+        d1_NNNN.dat and decoded by the numpy parser, OnlineSlam (FAST at
+        0.05 with 128 features, K = 64, SlamConfig(match_ratio=1.3,
+        initial_orientation=True)), then select_keyframes(16) →
+        make_ba_problem_from_tracks(max_tracks=128) → bundle_adjust(8) →
+        apply_ba_corrections; the online and the post-BA ATE.
 
 Run it from the root of a checkout:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python3 tools/jax_sift_ate_band.py \\
-        [--config sift|ncc|ba|loop] [--keys 7]
+        [--config sift|ncc|ba|loop|dat] [--keys 7]
 
 (a few minutes per configuration on a CPU). The SIFT frontend runs one
 frame per call (one compiled program), so the peak memory stays that of
@@ -135,13 +142,76 @@ def _post_ba(out, gt, kf_feats=None, mine=False):
     return ate, desc
 
 
+DAT_FRAMES = 48
+
+
+def _dat_band(n_keys: int) -> None:
+    """The dat config: examples/run_dat_pipeline.py's chain per key."""
+    import tempfile
+
+    from pre3_tpu.backend.tracks import make_ba_problem_from_tracks
+    from pre3_tpu.data.export import export_dat_sequence
+    from pre3_tpu.data.sr4000 import list_sequence, read_frame
+    from pre3_tpu.runtime.online import OnlineSlam
+
+    cam = sr4000_camera()
+    frames, traj, _ = render_sequence(n_frames=DAT_FRAMES, n_points=400,
+                                      noise=0.004)
+    gt = (traj.t - traj.t[0]) @ traj.r[0]
+    with tempfile.TemporaryDirectory() as d:
+        export_dat_sequence(frames, d)
+        frames = [read_frame(p) for p in list_sequence(d)]
+    kf_fe = jax.jit(lambda i, x, c: extract_features(
+        i, x, c, threshold=0.05, max_features=128))
+    columns: dict[str, list[float]] = {}
+    for key in range(n_keys):
+        t0 = time.perf_counter()
+        slam = OnlineSlam(
+            cam, cfg=SlamConfig(match_ratio=1.3, initial_orientation=True),
+            n_landmarks=64,
+            extractor_kwargs={"threshold": 0.05, "max_features": 128},
+            key=jax.random.PRNGKey(key))
+        slam.run(frames, prefetch=2)
+        ts, qs = slam.trajectory
+        ks = select_keyframes(jnp.asarray(ts), jnp.asarray(qs),
+                              jnp.ones(len(ts), bool), max_keyframes=16)
+        kf_idx = np.asarray(ks.indices)
+        kf_feats = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+            kf_fe(jnp.asarray(frames[i].intensity),
+                  jnp.asarray(np.nan_to_num(frames[i].xyz)),
+                  jnp.asarray(frames[i].confidence)) for i in kf_idx])
+        prob = make_ba_problem_from_tracks(
+            kf_feats, jnp.asarray(ts[kf_idx]), jnp.asarray(qs[kf_idx]),
+            ks.valid, max_tracks=128)
+        res = bundle_adjust(cam, prob, iters=8)
+        sm_t, _ = apply_ba_corrections(jnp.asarray(ts), jnp.asarray(qs),
+                                       ks.indices, ks.valid, res.kf_t,
+                                       res.kf_q)
+        row = {"online": float(ate_rmse(ts, gt, align=False)),
+               "post-BA": float(ate_rmse(np.asarray(sm_t), gt, align=False))}
+        print(f"key {key}: online ATE {row['online']:.4f} m, post-BA ATE "
+              f"{row['post-BA']:.4f} m, {int(ks.n)} keyframes, cost "
+              f"{float(res.cost[0]):.4f} -> {float(res.cost[-1]):.4f}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name, v in row.items():
+            columns.setdefault(name, []).append(v)
+    for name, v in columns.items():
+        print(f"dat {name} ATE over keys 0..{n_keys - 1}: min {min(v):.4f}, "
+              f"max {max(v):.4f}, mean {np.mean(v):.4f}, std "
+              f"{np.std(v):.4f} m ({', '.join(f'{x:.4f}' for x in v)})",
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("sift", "ncc", "ba", "loop"),
+    ap.add_argument("--config", choices=("sift", "ncc", "ba", "loop", "dat"),
                     default="sift")
     ap.add_argument("--keys", type=int, default=7)
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
+    if args.config == "dat":
+        _dat_band(args.keys)
+        return
     cam = sr4000_camera()
     frames, gt = _scene(loop=args.config == "loop")
     if args.config == "ncc":
