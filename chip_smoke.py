@@ -89,7 +89,20 @@ device, and imports nothing of JAX. Phases:
                   bit; feature_performance, summarize_stats, the map as
                   PLY;
  20. pnp-icp    — EPnP, DLS-PnP, ICP and GICP on a corridor frame pair,
-                  on the card and on the CPU, against the pair's VO.
+                  on the card and on the CPU, against the pair's VO;
+ 21. multi-device — the parallel modules on spawned ranks
+                  (``parallel/dryrun.py``): 21a one rank in a real NCCL
+                  group, the dry run's five stages, then sharded RANSAC at
+                  2048 hypotheses on a SIFT pair (K1 at (2048, 288)),
+                  landmark- and pose-sharded BA on phase 15's problem and
+                  pose-sharded BA on phase 16's (with its loop-closure
+                  pose factors), and run_slam_pipelined (SIFT, 64 frames,
+                  chunks of 16), each against its single-device function
+                  on the card; 21b two ranks sharing the card over gloo,
+                  the five stages, RANSAC and the landmark-sharded BA,
+                  equal to the bit across the ranks and within the
+                  tolerances of 21a. Per case: collectives, bytes,
+                  transport, K1/K2 launches.
 
 Each phase prints its seconds (``[time]`` lines).
 
@@ -248,6 +261,49 @@ REPLAY_FRAMES, REPLAY_SNAPSHOT = 16, 7
 # differ between the two devices, so the bound is 1e-3.
 PNP_ICP_TOL = 1e-3
 ICP_POINTS = 2048
+
+# Phase 21 (multi-device): the reference's sharded RANSAC batch; the
+# pipeline over 64 of the corridor's frames in chunks of 16; each spawned
+# run's time limit (a hung collective fails the phase).
+MD_RANSAC_BATCH = 2048
+MD_FRAMES, MD_CHUNK = 64, 16
+MD_TIMEOUT = 300
+# Landmark-sharded BA vs bundle_adjust on the same problem, on the card:
+# phase 15's card-vs-CPU bounds, with every LM decision equal (the CPU
+# tests: 0 at one rank on phase 15's problem, ≤ 1e-4 at 2 and 4 ranks
+# against the reference's sharded BA). Pose-sharded: the reference
+# test's 2e-3 on kf_t (the port on the CPU at one rank: 1.8e-5 on phase
+# 15's problem, 2.4e-7 on phase 16's). The pipeline: t and q within
+# 1e-4 where the chunked extraction's features are not bit-equal.
+MD_BA_TOL, MD_BA_POINTS_TOL, MD_PIPE_TOL = 1e-4, 1e-3, 1e-4
+MD_POSE_TOL, MD_POSE_POINTS_TOL = 2e-3, 5e-3
+# 21b's landmark-sharded BA (two shards summed) against 21a's, on phase
+# 15's problem in f32 and again in f64 (tools/md_ba_witness.py gives the
+# readings). The two ranks add the reduced system in another order, and
+# the solve (condition number 1.7e5 after Jacobi scaling) carries the f32
+# rounding into the poses: on an H100 each f32 run lies up to 1.8e-4 m
+# from its f64 run, and the two f32 runs part by 3.7e-6 to 1.0e-4 m in
+# kf_t (points up to 1.2e-4 m) with nothing at fault; the f64 runs part
+# by 8.4e-14 m. The faults the checks must catch, read at two CPU ranks:
+# the odometry terms added on every rank before the all-reduce moves kf_t
+# by 9.9e-3 m and the points by 2.0e-3 m, which the f32 bounds catch;
+# the damping kept on every rank moves kf_t by 2.1e-5 m in f32, inside
+# the f32 noise, and by 1.4e-7 m in f64 (kf_q 1.9e-8), which only the
+# f64 bound catches.
+MD_RANKS_TOL, MD_RANKS_POINTS_TOL = 1e-3, 5e-4
+MD_RANKS_F64_TOL = 1e-10
+# Each rank's K1 and K2 launches per stage and case of phase 21: the dry
+# run's sharded RANSAC one K1; its FAST pipeline over 9 frames one K1
+# and two K2 (VO, map match) per step; its multiprocess stage one RANSAC
+# K1 and run_slam over 8 frames; the BAs none; the full-width RANSAC one
+# K1 and the SIFT pipeline one K1 and two K2 per step.
+MD_LAUNCHES = {
+    "sharded-ransac": (1, 0), "sharded-ba": (0, 0),
+    "pose-sharded-ba": (0, 0), "stage-pipeline": (8, 16),
+    "multiprocess": (1 + 7, 2 * 7), "ransac": (1, 0), "ba": (0, 0),
+    "ba64": (0, 0), "pose_ba": (0, 0), "pose_ba_loop": (0, 0),
+    "pipeline": (MD_FRAMES - 1, 2 * (MD_FRAMES - 1)),
+}
 
 # K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
 # is below this relative gap may legitimately resolve either way.
@@ -470,7 +526,9 @@ def build_kernels(names):
 def check_k1():
     """K1 vs its plain version at every path's shape (VO (1024, 256), the
     EKF slices' and the offline keyframing's (512, 256), (512, 288), loop
-    mining's (1024, 288), the .dat path's (512, 128)) and the corner
+    mining's (1024, 288) and 21b's sharded RANSAC, the .dat path's
+    (512, 128), 21a's sharded RANSAC (2048, 288), the dry run's FAST VO
+    (512, 96) and its RANSAC stage's (64, 64) and (32, 64)) and the corner
     cases; timings at the same shapes."""
     from pre3_tpu_torch.ops.ransac_score import (
         _lib, residuals_torch, score_hypotheses, score_hypotheses_torch,
@@ -482,6 +540,10 @@ def check_k1():
         ("ekf-512x256", 512, 256, 6, False),
         ("mine-1024x288", 1024, 288, 17, False),
         ("dat-512x128", 512, 128, 21, False),
+        ("multi-device-2048x288", 2048, 288, 23, False),
+        ("dryrun-vo-512x96", 512, 96, 24, False),
+        ("dryrun-64x64", 64, 64, 25, False),
+        ("dryrun-2-ranks-32x64", 32, 64, 26, False),
         ("ragged-1000x250", 1000, 250, 2, False),
         ("n1-64x1", 64, 1, 3, False),
         ("all-invalid-128x256", 128, 256, 4, True),
@@ -524,7 +586,8 @@ def check_k1():
     timings = {}
     for name, b, n in (("1024x256", 1024, 256), ("512x256", 512, 256),
                        ("512x288", 512, 288), ("1024x288", 1024, 288),
-                       ("512x128", 512, 128)):
+                       ("512x128", 512, 128), ("2048x288", 2048, 288),
+                       ("512x96", 512, 96), ("64x64", 64, 64)):
         args = scorer_problem(b, n, 10)
         t = dict(device_ms=device_ms(lambda: score_hypotheses(*args)),
                  plain_ms=device_ms(lambda: score_hypotheses_torch(*args)),
@@ -581,8 +644,8 @@ def check_k2():
     cases, those of the cluster's column split among them; graph replay
     vs eager; timings at the slices' shapes (256²×121, 288²×128,
     256×288×128, the keyframe tracks' 512×288×128, the .dat path's
-    128²×121 and 64×128×121) and at 4096² and 8192², which no path of the
-    repo reaches."""
+    128²×121 and 64×128×121, the dry run's FAST 96²×121 and 24×96×121)
+    and at 4096² and 8192², which no path of the repo reaches."""
     from pre3_tpu_torch.ops.matching import (
         BIG, K2_RANKS, _best_two, _launch_k2, _lib, _pairwise_dist2,
         match_descriptors, match_descriptors_k2,
@@ -595,6 +658,8 @@ def check_k2():
         ("tracks-512x288-d128", 512, 288, 128, 16),
         ("dat-128x128-d121", 128, 128, 121, 22),
         ("dat-map-64x128-d121", 64, 128, 121, 23),
+        ("dryrun-vo-96x96-d121", 96, 96, 121, 24),
+        ("dryrun-map-24x96-d121", 24, 96, 121, 25),
         ("ragged-1000x777-d121", 1000, 777, 121, 2),
         ("one-1x1-d121", 1, 1, 121, 3),
         ("map-4096x4096-d128", 4096, 4096, 128, 4),
@@ -710,6 +775,8 @@ def check_k2():
                             ("512x288-d128", 512, 288, 128),
                             ("128x128-d121", 128, 128, 121),
                             ("64x128-d121", 64, 128, 121),
+                            ("96x96-d121", 96, 96, 121),
+                            ("24x96-d121", 24, 96, 121),
                             ("4096x4096-d128", 4096, 4096, 128),
                             ("8192x8192-d128", 8192, 8192, 128)):
         d1, d2, v1, v2 = matcher_problem(n1, n2, d, 11)
@@ -1305,6 +1372,7 @@ def ba_phase(out, gt):
         not (accepted == accepted_cpu).all()
     ):
         raise AssertionError("BA: card and CPU solutions disagree")
+    return prob
 
 
 def loop_phase():
@@ -1388,7 +1456,7 @@ def loop_phase():
             raise AssertionError(f"loop {name} ATE {ate:.4f} m outside "
                                  f"{center} ± {half}")
     zero_rows_phase(out, feats, ks, gt)
-    return k2_tracks, (k1_mine, k2_mine)
+    return k2_tracks, (k1_mine, k2_mine), merged
 
 
 def recorded_tracks(fn):
@@ -1829,6 +1897,224 @@ def pnp_icp_phase(images):
     return worst
 
 
+def md_cpu(nt) -> dict:
+    """A NamedTuple's fields as a dict of CPU tensors (None kept)."""
+    return {k: None if v is None else v.cpu() for k, v in nt._asdict().items()}
+
+
+def md_describe(name, rec) -> str:
+    comm = ", ".join(f"{k} ×{v['count']} ({v['bytes']} B)"
+                     for k, v in rec["comm"].items()) or "none"
+    return (f"{name}: {rec['seconds']:.2f} s, K1 {rec['k1']}, K2 "
+            f"{rec['k2']}; collectives {comm}")
+
+
+def md_check_ba(name, got, ref, tol, points_tol):
+    """A sharded BA's states against a reference BA's: (max |Δkf_t|,
+    max |Δpoints|); every LM decision equal."""
+    dt = float((got["kf_t"] - ref.kf_t.cpu()).abs().max())
+    dq = float((got["kf_q"] - ref.kf_q.cpu()).abs().max())
+    dp = float((got["points"] - ref.points.cpu()).abs().max())
+    same = bool(np.array_equal(np.diff(got["cost"].numpy()) < 0,
+                               np.diff(ref.cost.cpu().numpy()) < 0))
+    phase("multi-device", f"{name}: max |Δkf_t| {dt:.3e} m, "
+          f"max |Δkf_q| {dq:.3e} (tolerance {tol}), max |Δpoints| {dp:.3e} m "
+          f"(tolerance {points_tol}); LM decisions equal {same}; cost "
+          f"{float(got['cost'][0]):.4f} -> {float(got['cost'][-1]):.4f}")
+    if dt > tol or dq > tol or dp > points_tol or not same:
+        raise AssertionError(f"multi-device {name}: disagrees")
+    return dt, dp
+
+
+def md_check_launches(name, records) -> None:
+    """Each stage's and case's K1 and K2 launches on one rank are
+    MD_LAUNCHES'."""
+    for case, rec in records.items():
+        if (rec["k1"], rec["k2"]) != MD_LAUNCHES[case]:
+            raise AssertionError(
+                f"{name} {case}: K1 {rec['k1']}, K2 {rec['k2']} launches, "
+                f"expected {MD_LAUNCHES[case]}")
+
+
+def md_first_difference(a, b) -> str | None:
+    for name in a._fields:
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            return name
+    return None
+
+
+def multi_device_phase(im, prob15, prob16):
+    """Phase 21: the parallel modules on spawned ranks, 21a one rank in a
+    real NCCL group, 21b two ranks sharing the card over gloo; each case
+    against its single-device function on the card (computed here first,
+    so the ranks only load the kernels phase 2 built). Returns the K1 and
+    K2 launches of 21a and of 21b's ranks."""
+    from pre3_tpu_torch.backend.ba import bundle_adjust
+    from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.ops.matching import match_descriptors_auto
+    from pre3_tpu_torch.parallel import dryrun
+    from pre3_tpu_torch.utils.interop import to_torch
+    from pre3_tpu_torch.vo.ransac import ransac_rigid
+
+    cam = sr4000_camera()
+    # one SIFT pair of phase 10's frames, matched as vo_pair matches it
+    pair = sift_features([x[:2] for x in im])
+    m = match_descriptors_auto(pair.desc[0], pair.desc[1],
+                               valid1=pair.valid[0], valid2=pair.valid[1],
+                               ratio=1.3)
+    p1, p2 = pair.xyz[0], pair.xyz[1][m.index]
+    valid = m.accepted & pair.valid[0] & pair.valid[1][m.index]
+    gumbel = torch.as_tensor(np.random.default_rng(21).gumbel(
+        size=(MD_RANSAC_BATCH, SIFT_KF)).astype(np.float32), device="cuda")
+    ref_ransac = ransac_rigid(p1, p2, valid, batch=MD_RANSAC_BATCH,
+                              support_threshold=1e-3, gumbel=gumbel)
+    ref_ba = bundle_adjust(cam, prob15, iters=BA_ITERS)
+    ref_ba16 = bundle_adjust(cam, prob16, iters=BA_ITERS)
+    # the pipeline's reference: the full-batch frontend, then run_slam
+    # under the same draws
+    cfg = SlamConfig(**SIFT_CFG)
+    draws = to_torch(ekf_draws(MD_FRAMES, cfg, SIFT_LANDMARKS, seed=22,
+                               kf=SIFT_KF), "cpu")
+    frames = [x[:MD_FRAMES] for x in im]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = sift_features(frames)
+    torch.cuda.synchronize()
+    t_fe = time.perf_counter() - t0
+    ref_slam = run_slam(cam, feats, cfg, n_landmarks=SIFT_LANDMARKS,
+                        draws=to_torch(draws, "cuda"))
+    torch.cuda.synchronize()
+    t_be = time.perf_counter() - t0 - t_fe
+
+    ransac_case = {"name": "ransac", "kind": "ransac", "mesh": {"axis": "hyp"},
+                   "args": {"p1": p1.cpu(), "p2": p2.cpu(),
+                            "valid": valid.cpu(), "gumbel": gumbel.cpu(),
+                            "batch": MD_RANSAC_BATCH,
+                            "support_threshold": 1e-3}}
+    ba_case = {"name": "ba", "kind": "ba", "mesh": {"axis": "lm"},
+               "args": {"problem": md_cpu(prob15), "iters": BA_ITERS}}
+    ba64_case = {"name": "ba64", "kind": "ba", "mesh": {"axis": "lm"},
+                 "args": {"problem": {
+                     k: v.double() if v is not None and v.is_floating_point()
+                     else v for k, v in md_cpu(prob15).items()},
+                     "iters": BA_ITERS}}
+    cases = [ransac_case, ba_case, ba64_case] + [
+        {"name": name, "kind": "pose_ba", "mesh": {"axis": "blk"},
+         "args": {"problem": md_cpu(prob), "iters": BA_ITERS}}
+        for name, prob in (("pose_ba", prob15), ("pose_ba_loop", prob16))
+    ] + [{"name": "pipeline", "kind": "pipeline", "mesh": {"axis": "frame"},
+          "args": {"intensity": frames[0].cpu(), "xyz": frames[1].cpu(),
+                   "conf": frames[2].cpu(), "cfg": SIFT_CFG,
+                   "n_landmarks": SIFT_LANDMARKS, "chunk": MD_CHUNK,
+                   "extractor": "sift",
+                   "draws": {"steps": draws.steps._asdict(),
+                             "boot_add": draws.boot_add,
+                             "plane": draws.plane}}}]
+    torch.cuda.empty_cache()
+
+    # ---- 21a: one rank, a real NCCL group ----
+    t0 = time.perf_counter()
+    res_a = dryrun.run(1, backend="nccl", device="cuda", cases=cases,
+                       timeout=MD_TIMEOUT)[0]
+    phase("multi-device", f"21a: 1 rank, NCCL, {res_a['device']}: "
+          f"{time.perf_counter() - t0:.1f} s with the spawn")
+    for name, rec in res_a["records"].items():
+        phase("multi-device", "21a " + md_describe(name, rec))
+    md_check_launches("21a", res_a["records"])
+    out = res_a["outputs"]
+    got = out["ransac"]
+    for f in ref_ransac._fields:
+        if not torch.equal(got[f], getattr(ref_ransac, f).cpu()):
+            raise AssertionError(f"21a sharded RANSAC {f} differs from "
+                                 "ransac_rigid")
+    phase("multi-device", f"21a sharded RANSAC ({MD_RANSAC_BATCH}, {SIFT_KF}): "
+          f"equal to ransac_rigid to the bit; n_inliers "
+          f"{int(got['n_inliers'])}, best_support {int(got['best_support'])}")
+    md_check_ba("21a landmark-sharded BA vs bundle_adjust", out["ba"], ref_ba,
+                MD_BA_TOL, MD_BA_POINTS_TOL)
+    for name, ref in (("pose_ba", ref_ba), ("pose_ba_loop", ref_ba16)):
+        rep = {k: int(out[name][k]) for k in ("fb", "window", "global_lm",
+                                              "dropped_obs")}
+        phase("multi-device", f"21a {name}: {rep}")
+        md_check_ba(f"21a pose-sharded BA ({name}) vs bundle_adjust",
+                    out[name], ref,
+                    MD_POSE_TOL, MD_POSE_POINTS_TOL)
+    pipe = out["pipeline"]
+    exact = all(torch.equal(pipe[k], v.cpu()) for k, v in (
+        ("t", ref_slam.t), ("q", ref_slam.q), ("stats.n_li",
+                                               ref_slam.stats.n_li)))
+    seconds = res_a["records"]["pipeline"]["seconds"]
+    if exact:
+        note = "t, q and n_li equal to run_slam's to the bit"
+    else:
+        chunks = [(0, 1)] + [(lo, min(lo + MD_CHUNK, MD_FRAMES))
+                             for lo in range(1, MD_FRAMES, MD_CHUNK)]
+        parts = [sift_features([x[lo:hi] for x in frames])
+                 for lo, hi in chunks]
+        chunked = Features(*(torch.cat(f) for f in zip(*parts)))
+        field = md_first_difference(chunked, feats)
+        dt = float((pipe["t"] - ref_slam.t.cpu()).abs().max())
+        dq = float((pipe["q"] - ref_slam.q.cpu()).abs().max())
+        note = (f"not bit-equal (first differing feature field of the "
+                f"chunked extraction: {field}); max |Δt| {dt:.3e}, max |Δq| "
+                f"{dq:.3e} (tolerance {MD_PIPE_TOL})")
+        if field is None or dt > MD_PIPE_TOL or dq > MD_PIPE_TOL or not (
+            torch.equal(pipe["stats.n_li"], ref_slam.stats.n_li.cpu())
+        ):
+            raise AssertionError(f"21a pipeline: {note}")
+    phase("multi-device", f"21a run_slam_pipelined, SIFT, {MD_FRAMES} frames, "
+          f"chunks of {MD_CHUNK}: {note}; wall {seconds:.2f} s (in the "
+          f"rank), serial frontend + backend here {t_fe:.2f} + {t_be:.2f} = "
+          f"{t_fe + t_be:.2f} s")
+    for name, rec in res_a["records"].items():
+        if rec["comm"] and not any(k.endswith("/nccl") for k in rec["comm"]):
+            raise AssertionError(f"21a {name}: no collective went over NCCL")
+
+    # ---- 21b: two ranks on cuda:0 over gloo ----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res_b = dryrun.run(2, backend="gloo", device="cuda",
+                       cases=[ransac_case, ba_case, ba64_case],
+                       timeout=MD_TIMEOUT)
+    phase("multi-device", f"21b: 2 ranks, gloo, "
+          f"{[r['device'] for r in res_b]}: "
+          f"{time.perf_counter() - t0:.1f} s with the spawn; every output "
+          f"equal to the bit across the ranks")
+    for r in res_b:
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"21b rank {r['rank']} ran on {r['device']}")
+    for name, rec in res_b[0]["records"].items():
+        phase("multi-device", "21b rank 0 " + md_describe(name, rec))
+    for r in res_b:
+        md_check_launches(f"21b rank {r['rank']}", r["records"])
+    got = res_b[0]["outputs"]
+    same = all(torch.equal(got["ransac"][f], out["ransac"][f])
+               for f in out["ransac"])
+    dt = float((got["ransac"]["t"] - out["ransac"]["t"]).abs().max())
+    phase("multi-device", f"21b sharded RANSAC ({MD_RANSAC_BATCH // 2} per "
+          f"rank): equal to 21a's to the bit {same}, max |Δt| {dt:.3e}")
+    if dt > 1e-5 or not torch.equal(got["ransac"]["inliers"],
+                                    out["ransac"]["inliers"]):
+        raise AssertionError("21b sharded RANSAC disagrees with 21a")
+    md_check_ba("21b landmark-sharded BA vs 21a", got["ba"],
+                type(ref_ba)(**out["ba"]), MD_RANKS_TOL, MD_RANKS_POINTS_TOL)
+    md_check_ba("21b landmark-sharded BA vs 21a in f64", got["ba64"],
+                type(ref_ba)(**out["ba64"]), MD_RANKS_F64_TOL,
+                MD_RANKS_F64_TOL)
+    f32_err = [max(float((o["ba"][k].double() - o["ba64"][k]).abs().max())
+                   for k in ("kf_t", "points")) for o in (out, got)]
+    phase("multi-device", f"21a/21b f32 landmark-sharded BA vs the same in "
+          f"f64: max |Δ| {f32_err[0]:.3e} m at one rank, {f32_err[1]:.3e} m "
+          f"at two")
+    k_a = (sum(r["k1"] for r in res_a["records"].values()),
+           sum(r["k2"] for r in res_a["records"].values()))
+    k_b = [(sum(r["k1"] for r in x["records"].values()),
+            sum(r["k2"] for r in x["records"].values())) for x in res_b]
+    return k_a, k_b
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -1891,8 +2177,8 @@ def main() -> None:
                            NCC_TIMED_RUNS)
 
     # ---- 15./16. config #4: keyframe BA, tracks, loop mining ----
-    timed("ba", ba_phase, sift_out, gt)
-    tracks_k2, (mine_k1, mine_k2) = timed("loop", loop_phase)
+    prob15 = timed("ba", ba_phase, sift_out, gt)
+    tracks_k2, (mine_k1, mine_k2), prob16 = timed("loop", loop_phase)
 
     # ---- 17.–20. the host-side paths: .dat, caches, replay, PnP/ICP ----
     with tempfile.TemporaryDirectory(prefix="pre3_smoke_") as tmp:
@@ -1902,6 +2188,9 @@ def main() -> None:
                                      tmp / "keyframing")
         timed("replay", replay_phase, tmp)
     pnp_err = timed("pnp-icp", pnp_icp_phase, images)
+
+    # ---- 21. the multi-device modules on spawned ranks ----
+    md_a, md_b = timed("multi-device", multi_device_phase, im, prob15, prob16)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -1921,10 +2210,17 @@ def main() -> None:
          "ms": k1_t["device_ms"], **k1_t,
          "paths": {"sift_slice": k1, "ncc_slice": ncc_k1,
                    "loop_mining": mine_k1, "dat": dat_k1,
-                   "offline_kf": kf_k1, "offline_kf_warm": warm[0]},
+                   "offline_kf": kf_k1, "offline_kf_warm": warm[0],
+                   "multi_device": {"nccl_1_rank": md_a[0],
+                                    "gloo_2_ranks": [k[0] for k in md_b]}},
          "loop_mining_time": {"shape": "B=1024, N=288",
                               **k1_times["1024x288"]},
-         "dat_time": {"shape": "B=512, N=128", **k1_times["512x128"]}},
+         "dat_time": {"shape": "B=512, N=128", **k1_times["512x128"]},
+         "multi_device_time": {"shape": "B=2048, N=288",
+                               **k1_times["2048x288"]},
+         "dryrun_time": {"shape": "B=512, N=96", **k1_times["512x96"]},
+         "dryrun_ransac_time": {"shape": "B=64, N=64",
+                                **k1_times["64x64"]}},
         {"name": "match_stream", "route": "cuda",
          "source": "pre3_tpu_torch/csrc/match_stream.cu",
          "replaces": "pre3_tpu/ops/matching.py:105",
@@ -1934,13 +2230,19 @@ def main() -> None:
          "paths": {"sift_slice": k2, "ncc_slice": ncc_k2,
                    "tracks": tracks_k2, "loop_mining": mine_k2,
                    "dat": dat_k2, "offline_kf": kf_k2,
-                   "offline_kf_warm": warm[1]},
+                   "offline_kf_warm": warm[1],
+                   "multi_device": {"nccl_1_rank": md_a[1],
+                                    "gloo_2_ranks": [k[1] for k in md_b]}},
          "tracks_time": {"shape": "N1=512, N2=288, D=128",
                          **k2_times["512x288-d128"]},
          "dat_time": {"shape": "N1=N2=128, D=121",
                       **k2_times["128x128-d121"]},
          "dat_map_time": {"shape": "N1=64, N2=128, D=121",
-                          **k2_times["64x128-d121"]}},
+                          **k2_times["64x128-d121"]},
+         "dryrun_time": {"shape": "N1=N2=96, D=121",
+                         **k2_times["96x96-d121"]},
+         "dryrun_map_time": {"shape": "N1=24, N2=96, D=121",
+                             **k2_times["24x96-d121"]}},
     ], "pnp_icp_card_vs_cpu": pnp_err}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,1 +1,1 @@
-"""Drivers: the online streaming SLAM loop."""
+"""Drivers: the online streaming SLAM loop and the stage pipeline."""
