@@ -24,7 +24,11 @@ CUDA kernel of those paths against its plain PyTorch version:
     decoder into ``OnlineSlam`` and the tracks BA
     (``python3 -m pre3_tpu_torch.examples.run_dat_pipeline``), the cached
     offline keyframing (``...examples.run_offline_keyframing``), replay
-    from a snapshot, and the PnP/ICP solvers.
+    from a snapshot, and the PnP/ICP solvers;
+  * the multi-sequence path (``pre3_tpu_torch/utils/measure_batch.py``):
+    ``extract_features_sift`` over S·F frames → ``run_slam_batched``, one
+    ``torch.func.vmap(slam_step)`` over S sequences per step, K1 and K2
+    launched once per step for all of them with a sequence axis.
 
 Run it from the root of a checkout:
 
@@ -102,7 +106,17 @@ device, and imports nothing of JAX. Phases:
                   the five stages, RANSAC and the landmark-sharded BA,
                   equal to the bit across the ranks and within the
                   tolerances of 21a. Per case: collectives, bytes,
-                  transport, K1/K2 launches.
+                  transport, K1/K2 launches;
+ 22. batch      — 22a the batched K1 at (16, 512, 288) and K2 at
+                  16 × 288²×128 and 16 × 256×288×128: bitwise equal to 16
+                  single launches, one launch through torch.func.vmap,
+                  against the vmapped plain version, timed; 22b 4 SIFT
+                  corridors × 16 frames through run_slam_batched, each
+                  against its own run_slam with the same generator; 22c
+                  S = 1, 4, 16 over 32 frames with vmap's fallback off and
+                  host syncs raising: K1 = 1 and K2 = 2 launches per
+                  batched step, frames/s, launches and device busy per
+                  step, idle share, peak memory, ATE.
 
 Each phase prints its seconds (``[time]`` lines).
 
@@ -305,6 +319,35 @@ MD_LAUNCHES = {
     "pipeline": (MD_FRAMES - 1, 2 * (MD_FRAMES - 1)),
 }
 
+# Phase 22 (batch): the multi-sequence path, run_slam_batched (one
+# torch.func.vmap of slam_step over S sequences per step), on
+# pre3_tpu_torch/utils/measure_batch.py's SIFT corridors (scene_seed=b,
+# traj_seed=100 + b) cut to BATCH_FRAMES frames. 22a: the batched K1 at
+# (BATCH_SEQS, 512, 288) and K2 at BATCH_SEQS × 288²×128 and × 256×288×128;
+# 22b: BATCH_PARITY_SEQS sequences over their first BATCH_PARITY_FRAMES
+# frames, each against its own run_slam with the same generator; 22c:
+# S ∈ BATCH_SIZES, one sync-checked timed run each.
+BATCH_SEQS = 16
+BATCH_PARITY_SEQS, BATCH_PARITY_FRAMES = 4, 16
+BATCH_SIZES, BATCH_FRAMES = (1, 4, 16), 32
+# 22b: a batched sequence runs the single run's f32 arithmetic with the
+# kernels bit-equal and a few reductions batched in another order (the
+# CPU test: ≤ 3e-8 m over 7 steps, stats equal); every stat must be
+# equal, and t within this bound, far under what a wrong draw, branch or
+# match moves (≥ 1e-3 m).
+BATCH_PARITY_TOL = 1e-4
+# 22c: each sequence's ATE band. The JAX reference on the CPU over keys
+# 0..6 (tools/jax_sift_ate_band.py --config batch: the same 32-frame
+# corridors, the exact SIFT branch, K=256) gives these means per
+# sequence, each key within 0.0021–0.0169 m of the others (PERF.md §2);
+# the band is the mean ± 0.3× it, as the .dat bands are. Every reference
+# key lies inside it (the farthest, sequence 13's 0.0900 m, at 0.61 of
+# the half width).
+BATCH_ATE_MEANS = (0.1116, 0.0463, 0.0641, 0.0938, 0.1375, 0.0777, 0.0823,
+                   0.0852, 0.0565, 0.0311, 0.0429, 0.0560, 0.0620, 0.0760,
+                   0.0873, 0.0305)
+BATCH_ATE_REL = 0.3
+
 # K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
 # is below this relative gap may legitimately resolve either way.
 K2_MARGIN = 1e-5
@@ -434,22 +477,23 @@ def bound_ms(flops: float, flop_rate: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def k1_bound(b: int, n: int):
+def k1_bound(b: int, n: int, s: int = 1):
     """K1: ~28 f32 flops per (hypothesis, point) — 9 products, 9 sums
     and 3 differences for R·p2 + t − p1, 3 squares and 2 sums, the
     compare and the accumulation — outside the tensor cores; bytes: R,
-    t, both point sets, the flags, the threshold, support and err."""
-    return bound_ms(28.0 * b * n, H100_F32_FLOPS,
-                    b * 48 + 2 * n * 12 + n + 4 + b * 8)
+    t, both point sets, the flags, the threshold, support and err; all
+    of it ``s`` times for s sequences."""
+    return bound_ms(28.0 * s * b * n, H100_F32_FLOPS,
+                    s * (b * 48 + 2 * n * 12 + n + 4 + b * 8))
 
 
-def k2_bound(n1: int, n2: int, d: int):
+def k2_bound(n1: int, n2: int, d: int, s: int = 1):
     """K2: the product's 2·N1·N2·D flops at the TF32 tensor-core rate,
     the fastest the card runs f32 inputs (3xTF32 does three passes and
     cannot beat it); bytes: both descriptor sets, the column flags and
-    the three outputs."""
-    return bound_ms(2.0 * n1 * n2 * d, H100_TF32_FLOPS,
-                    4 * (n1 + n2) * d + n2 + n1 * 16)
+    the three outputs; all of it ``s`` times for s sequences."""
+    return bound_ms(2.0 * s * n1 * n2 * d, H100_TF32_FLOPS,
+                    s * (4 * (n1 + n2) * d + n2 + n1 * 16))
 
 
 def floor_fn(launch, *sizes):
@@ -523,6 +567,35 @@ def build_kernels(names):
                     phase("build", f"{name}: {line.strip()}")
 
 
+def k1_compare(where: str, name: str, args, k, p) -> float:
+    """K1's (support, err) vs the plain version's on one problem: support
+    equal but for points whose residual lies within 1e-6·thr of thr
+    (they may fall either way; counted per hypothesis), err within 1e-5
+    relative on the hypotheses without such points. Returns the largest
+    err difference there."""
+    from pre3_tpu_torch.ops.ransac_score import residuals_torch
+
+    r, t, p1, p2, valid, thr = args
+    (sup_k, err_k), (sup_p, err_p) = k, p
+    torch.cuda.synchronize()
+    resid2 = residuals_torch(r, t, p1, p2)
+    band = (valid[None] & ((resid2 - thr).abs() <= 1e-6 * thr)).sum(-1)
+    diff = (sup_k.long() - sup_p.long()).abs()
+    outside = int((diff > band).sum())
+    clean = band == 0
+    rel = ((err_k - err_p).abs() / err_p.abs().clamp(min=1e-30))[clean]
+    abs_err = float((err_k - err_p).abs()[clean].max())
+    phase(where, f"K1 {name}: support mismatches outside band "
+          f"{outside}, exact {int((diff == 0).sum())}/{len(sup_k)}; err max "
+          f"abs {abs_err:.3e}, max rel "
+          f"{float(rel.max()) if rel.numel() else 0.0:.3e}")
+    if outside:
+        raise AssertionError(f"K1 {name}: support differs outside the band")
+    torch.testing.assert_close(err_k[clean], err_p[clean], rtol=1e-5,
+                               atol=0.0)
+    return abs_err
+
+
 def check_k1():
     """K1 vs its plain version at every path's shape (VO (1024, 256), the
     EKF slices' and the offline keyframing's (512, 256), (512, 288), loop
@@ -531,7 +604,7 @@ def check_k1():
     (512, 96) and its RANSAC stage's (64, 64) and (32, 64)) and the corner
     cases; timings at the same shapes."""
     from pre3_tpu_torch.ops.ransac_score import (
-        _lib, residuals_torch, score_hypotheses, score_hypotheses_torch,
+        _lib, score_hypotheses, score_hypotheses_torch,
     )
 
     cases = [  # (name, B, N, seed, all_invalid)
@@ -552,28 +625,10 @@ def check_k1():
     max_abs_err = 0.0
     for name, b, n, seed, all_invalid in cases:
         args = scorer_problem(b, n, seed, all_invalid)
-        r, t, p1, p2, valid, thr = args
         sup_k, err_k = score_hypotheses(*args)
-        sup_p, err_p = score_hypotheses_torch(*args)
-        torch.cuda.synchronize()
-        # points whose residual lies within 1e-6·thr of thr may fall
-        # either way; they are counted per hypothesis
-        resid2 = residuals_torch(r, t, p1, p2)
-        band = (valid[None] & ((resid2 - thr).abs() <= 1e-6 * thr)).sum(-1)
-        diff = (sup_k.long() - sup_p.long()).abs()
-        outside = int((diff > band).sum())
-        clean = band == 0
-        rel = ((err_k - err_p).abs() / err_p.abs().clamp(min=1e-30))[clean]
-        abs_err = float((err_k - err_p).abs()[clean].max())
+        abs_err = k1_compare("kernel", name, args, (sup_k, err_k),
+                             score_hypotheses_torch(*args))
         max_abs_err = max(max_abs_err, abs_err)
-        phase("kernel", f"K1 {name}: support mismatches outside band "
-              f"{outside}, exact {int((diff == 0).sum())}/{b}; err max abs "
-              f"{abs_err:.3e}, max rel "
-              f"{float(rel.max()) if rel.numel() else 0.0:.3e}")
-        if outside:
-            raise AssertionError(f"K1 {name}: support differs outside the band")
-        torch.testing.assert_close(err_k[clean], err_p[clean], rtol=1e-5,
-                                   atol=0.0)
         if all_invalid and int(sup_k.sum()) != 0:
             raise AssertionError(f"K1 {name}: all-invalid case has support")
         if not all_invalid and n > 1 and int(torch.argmax(sup_k)) != 0:
@@ -594,7 +649,7 @@ def check_k1():
                  library_ms=None,
                  wrapper_ms=wrapper_ms(lambda: score_hypotheses(*args)),
                  launch_floor_ms=device_ms(floor_fn(
-                     _lib().ransac_score_floor_launch, b)))
+                     _lib().ransac_score_floor_launch, 1, b)))
         t["bound_ms"], t["bound_by"] = k1_bound(b, n)
         timings[name] = t
         phase("kernel", f"K1 time B×N={name}: device {t['device_ms']:.5f} ms "
@@ -605,7 +660,7 @@ def check_k1():
     return max_abs_err, timings
 
 
-def k2_compare(name, k, p, d1, d2) -> float:
+def k2_compare(name, k, p, d1, d2, where: str = "kernel") -> float:
     """K2's Matches vs the plain matcher's: index equal on every row whose
     relative best/second margin exceeds K2_MARGIN, accepted equal where
     the ratio margin does too, "no candidate" (BIG) exactly where the
@@ -629,7 +684,7 @@ def k2_compare(name, k, p, d1, d2) -> float:
     err = max(float(torch.where(q < BIG, (a - q).abs(), 0.0).max())
               for a, q in ((k.dist2, p.dist2),
                            (k.dist2_second, p.dist2_second)))
-    phase("kernel", f"K2 {name}: index mismatches on clear rows "
+    phase(where, f"K2 {name}: index mismatches on clear rows "
           f"{idx_bad}/{int(clear.sum())}, accepted mismatches "
           f"{acc_bad}/{int(sel.sum())}, dist2 max abs err {err:.3e} "
           f"(tol {1e-5 * scale:.1e}), accepted {int(k.accepted.sum())}")
@@ -791,7 +846,7 @@ def check_k2():
             wrapper_ms=wrapper_ms(
                 lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)),
             launch_floor_ms=device_ms(floor_fn(
-                _lib().match_stream_floor_launch, n1, n2, d)))
+                _lib().match_stream_floor_launch, 1, n1, n2, d)))
         t["bound_ms"], t["bound_by"] = k2_bound(n1, n2, d)
         timings[name] = t
         phase("kernel", f"K2 time {name}: device {t['device_ms']:.5f} ms "
@@ -2115,6 +2170,212 @@ def multi_device_phase(im, prob15, prob16):
     return k_a, k_b
 
 
+def batch_kernels():
+    """Phase 22a: the batched launches of K1 at (BATCH_SEQS, 512, 288)
+    and K2 at BATCH_SEQS × 288²×128 (VO) and × 256×288×128 (map), each
+    sequence its own problem: equal to the bit to BATCH_SEQS single
+    launches; through torch.func.vmap of the wrapper one launch, equal to
+    the direct batched one; against the vmapped plain version within
+    phase 3's tolerances. Times: the batched launch, the BATCH_SEQS
+    single launches, plain and (K2) torch.bmm f32, all by graph replay;
+    the vmapped wrapper's host time; the empty kernel at the batched
+    configuration; bounds BATCH_SEQS times the single ones."""
+    from pre3_tpu_torch.ops import matching, ransac_score
+    from pre3_tpu_torch.ops.matching import (
+        BIG, Matches, _best_two, _launch_k2, _pairwise_dist2,
+        match_descriptors, match_descriptors_k2,
+    )
+    from pre3_tpu_torch.ops.ransac_score import (
+        _launch, score_hypotheses, score_hypotheses_torch,
+    )
+
+    n_seq = BATCH_SEQS
+    vmap = torch.func.vmap
+    times, errs = {}, {}
+
+    def timing(key, batched, singles, plain, library, wrapper, floor, bound):
+        t = dict(device_ms=device_ms(batched), singles_ms=device_ms(singles),
+                 plain_ms=device_ms(plain),
+                 library_ms=None if library is None else device_ms(library),
+                 wrapper_ms=wrapper_ms(wrapper, calls=50),
+                 launch_floor_ms=device_ms(floor))
+        t["bound_ms"], t["bound_by"] = bound
+        times[key] = t
+        lib = "none" if library is None else f"{t['library_ms']:.5f}"
+        phase("batch", f"{key}: batched device {t['device_ms']:.5f} ms "
+              f"(empty-kernel floor {t['launch_floor_ms']:.5f}), "
+              f"{n_seq} single launches {t['singles_ms']:.5f}, plain "
+              f"{t['plain_ms']:.5f}, library {lib}, vmapped wrapper (host) "
+              f"{t['wrapper_ms']:.5f}; bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), {t['bound_ms'] / t['device_ms']:.2%} of it")
+
+    # K1
+    b, n = 512, SIFT_KF
+    probs = [scorer_problem(b, n, 30 + q) for q in range(n_seq)]
+    args = [torch.stack(x).contiguous() for x in zip(*probs)]
+    sup_b, err_b = _launch(*args)
+    for q, prob in enumerate(probs):
+        sup_1, err_1 = _launch(*prob)
+        if not (torch.equal(sup_b[q], sup_1) and torch.equal(err_b[q], err_1)):
+            raise AssertionError(f"batched K1: sequence {q} differs from its "
+                                 "single launch")
+    before = score_hypotheses.launches
+    sup_v, err_v = vmap(score_hypotheses)(*args)
+    if score_hypotheses.launches != before + 1 or not (
+        torch.equal(sup_v, sup_b) and torch.equal(err_v, err_b)
+    ):
+        raise AssertionError("K1 under vmap: not one batched launch equal "
+                             "to the direct one")
+    sup_p, err_p = vmap(score_hypotheses_torch)(*args)
+    errs["k1"] = max(k1_compare(
+        "batch", f"batched {n_seq}x{b}x{n} sequence {q}",
+        [x[q] for x in args], (sup_b[q], err_b[q]), (sup_p[q], err_p[q]))
+        for q in range(n_seq))
+    phase("batch", f"K1 batched ({n_seq}, {b}, {n}): bitwise equal to "
+          f"{n_seq} single launches; vmap of the wrapper: one launch, equal")
+    timing(f"K1 {n_seq}x{b}x{n}", lambda: _launch(*args),
+           lambda: [_launch(*prob) for prob in probs],
+           lambda: vmap(score_hypotheses_torch)(*args), None,
+           lambda: vmap(score_hypotheses)(*args),
+           floor_fn(ransac_score._lib().ransac_score_floor_launch,
+                    n_seq, b), k1_bound(b, n, n_seq))
+
+    # K2
+    errs["k2"] = 0.0
+    for name, n1, n2, d in (("vo", SIFT_KF, SIFT_KF, 128),
+                            ("map", SIFT_LANDMARKS, SIFT_KF, 128)):
+        probs = [matcher_problem(n1, n2, d, 40 + q) for q in range(n_seq)]
+        d1, d2, v1, v2 = (torch.stack(x).contiguous() for x in zip(*probs))
+        got = _launch_k2(d1, d2, v2)
+        for q in range(n_seq):
+            one = _launch_k2(d1[q], d2[q], v2[q])
+            if not all(torch.equal(a[q], c) for a, c in zip(got, one)):
+                raise AssertionError(f"batched K2 {name}: sequence {q} "
+                                     "differs from its single launch")
+        before = match_descriptors_k2.launches
+        k = vmap(lambda a, c, e, f: match_descriptors_k2(
+            a, c, e, f, ratio=1.3))(d1, d2, v1, v2)
+        if match_descriptors_k2.launches != before + 1 or not all(
+            torch.equal(a, c) for a, c in zip(k[:3], got)
+        ):
+            raise AssertionError(f"K2 {name} under vmap: not one batched "
+                                 "launch equal to the direct one")
+        p = vmap(lambda a, c, e, f: match_descriptors(
+            a, c, e, f, ratio=1.3))(d1, d2, v1, v2)
+        for q in range(n_seq):
+            errs["k2"] = max(errs["k2"], k2_compare(
+                f"batched {name} {n_seq}x{n1}x{n2}x{d} sequence {q}",
+                Matches(*(x[q] for x in k)), Matches(*(x[q] for x in p)),
+                d1[q], d2[q], where="batch"))
+        phase("batch", f"K2 batched {name} {n_seq}x{n1}x{n2}x{d}: bitwise "
+              f"equal to {n_seq} single launches; vmap of the wrapper: one "
+              "launch, equal")
+        timing(f"K2 {name} {n_seq}x{n1}x{n2}x{d}",
+               lambda: _launch_k2(d1, d2, v2),
+               lambda: [_launch_k2(d1[q], d2[q], v2[q])
+                        for q in range(n_seq)],
+               lambda: _best_two(torch.where(
+                   v2[:, None, :], _pairwise_dist2(d1, d2), BIG)),
+               lambda: torch.bmm(d1, d2.transpose(1, 2)),
+               lambda: vmap(lambda a, c, e, f: match_descriptors_k2(
+                   a, c, e, f, ratio=1.3))(d1, d2, v1, v2),
+               floor_fn(matching._lib().match_stream_floor_launch,
+                        n_seq, n1, n2, d), k2_bound(n1, n2, d, n_seq))
+    return errs, times
+
+
+def batch_parity(host):
+    """Phase 22b: BATCH_PARITY_SEQS of the corridors over their first
+    BATCH_PARITY_FRAMES frames through run_slam_batched, each sequence
+    against run_slam on its own features with the same generator seed:
+    every stat equal, t within BATCH_PARITY_TOL."""
+    from pre3_tpu_torch.ekf.slam import run_slam
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils import measure_batch
+
+    n_seq, n = BATCH_PARITY_SEQS, BATCH_PARITY_FRAMES
+    images = [torch.as_tensor(x[:n_seq, :n], device="cuda") for x in host]
+    out, feats, _, t_slam = measure_batch.pipeline(images, SIFT_LANDMARKS,
+                                                   seed=5)
+    gens = measure_batch.generators(n_seq, 5, "cuda")
+    gaps = []
+    for q in range(n_seq):
+        one = run_slam(sr4000_camera(), Features(*(x[q] for x in feats)),
+                       measure_batch.CFG, n_landmarks=SIFT_LANDMARKS,
+                       generator=gens[q])
+        for name in one.stats._fields:
+            a, c = getattr(out.stats, name)[q], getattr(one.stats, name)
+            if not torch.equal(a, c):
+                step = int(torch.nonzero(a != c)[0, 0])
+                raise AssertionError(
+                    f"batch parity: sequence {q}, {name} first differs at "
+                    f"step {step + 1}: batched {a.tolist()}, single "
+                    f"{c.tolist()}; max |Δt| before it "
+                    f"{float((out.t[q, :step + 1] - one.t[:step + 1]).abs().max()):.3e} m")
+        gaps.append((float((out.t[q] - one.t).abs().max()),
+                     float((out.q[q] - one.q).abs().max())))
+    phase("batch", f"22b: {n_seq} sequences x {n} frames, K="
+          f"{SIFT_LANDMARKS} (run_slam_batched {t_slam:.2f} s): every stat "
+          f"equal to its single run_slam; max |Δt| per sequence "
+          f"{[f'{g[0]:.3e}' for g in gaps]} m, max |Δq| "
+          f"{[f'{g[1]:.3e}' for g in gaps]} (bound {BATCH_PARITY_TOL} m)")
+    if max(g[0] for g in gaps) > BATCH_PARITY_TOL:
+        raise AssertionError("batch parity: t outside the bound")
+
+
+def batch_sweep(host, gts):
+    """Phase 22c: S ∈ BATCH_SIZES over BATCH_FRAMES frames, one timed run
+    each with host syncs raising (measure_batch.measure: frontend over
+    the S·F frames, run_slam_batched with vmap's fallback off), then a
+    profiled step. K1 = 1 and K2 = 2 launches per batched step at every
+    S; each S's ATE in its band. Returns the largest S's (K1, K2)
+    launches."""
+    from pre3_tpu_torch.utils import measure_batch
+
+    res = None
+    for n_seq in BATCH_SIZES:
+        images = [torch.as_tensor(x[:n_seq], device="cuda") for x in host]
+        res = measure_batch.measure(images, gts[:n_seq], SIFT_LANDMARKS,
+                                    reps=1, sync_check=True, warmup=False)
+        phase("batch", "22c " + measure_batch.describe(res))
+        steps = BATCH_FRAMES - 1
+        if (res["k1"], res["k2"]) != (steps, 2 * steps):
+            raise AssertionError(f"batch S={n_seq}: K1 {res['k1']}, K2 "
+                                 f"{res['k2']} launches over {steps} steps")
+        t = res["trajectory"].t
+        if t.shape != (n_seq, BATCH_FRAMES, 3) or not bool(
+            torch.isfinite(t).all()
+        ):
+            raise AssertionError(f"batch S={n_seq}: trajectory {t.shape}")
+        phase("batch", f"22c S={n_seq} ATE per sequence "
+              f"{[round(a, 4) for a in res['ates']]} m")
+        for q, ate in enumerate(res["ates"]):
+            ref = BATCH_ATE_MEANS[q]
+            if abs(ate - ref) > BATCH_ATE_REL * ref:
+                raise AssertionError(
+                    f"batch S={n_seq}: sequence {q} ATE {ate:.4f} m outside "
+                    f"{ref} ± {BATCH_ATE_REL * ref:.4f}")
+    return res["k1"], res["k2"]
+
+
+def batch_phase():
+    """Phase 22: the multi-sequence path (22a, 22b, 22c)."""
+    from pre3_tpu_torch.utils import measure_batch
+
+    t0 = time.perf_counter()
+    errs, times = batch_kernels()
+    t1 = time.perf_counter()
+    host, gts = measure_batch.render_batch(BATCH_FRAMES, max(BATCH_SIZES))
+    t2 = time.perf_counter()
+    batch_parity(host)
+    t3 = time.perf_counter()
+    launches = batch_sweep(host, gts)
+    phase("batch", f"22a {t1 - t0:.1f} s, rendering {t2 - t1:.1f} s, 22b "
+          f"{t3 - t2:.1f} s, 22c {time.perf_counter() - t3:.1f} s")
+    return errs, times, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -2191,6 +2452,9 @@ def main() -> None:
 
     # ---- 21. the multi-device modules on spawned ranks ----
     md_a, md_b = timed("multi-device", multi_device_phase, im, prob15, prob16)
+
+    # ---- 22. the multi-sequence path: run_slam_batched ----
+    b_err, b_times, (b_k1, b_k2) = timed("batch", batch_phase)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -2243,6 +2507,23 @@ def main() -> None:
                          **k2_times["96x96-d121"]},
          "dryrun_map_time": {"shape": "N1=24, N2=96, D=121",
                              **k2_times["24x96-d121"]}},
+        {"name": "ransac_score_batched", "route": "cuda",
+         "source": "pre3_tpu_torch/csrc/ransac_score.cu",
+         "replaces": "pre3_tpu/ops/ransac_score.py:45",
+         "shape": f"S={BATCH_SEQS}, B=512, N=288",
+         "launches": b_k1, "max_abs_err": b_err["k1"],
+         "ms": b_times[f"K1 {BATCH_SEQS}x512x{SIFT_KF}"]["device_ms"],
+         **b_times[f"K1 {BATCH_SEQS}x512x{SIFT_KF}"]},
+        {"name": "match_stream_batched", "route": "cuda",
+         "source": "pre3_tpu_torch/csrc/match_stream.cu",
+         "replaces": "pre3_tpu/ops/matching.py:105",
+         "shape": f"S={BATCH_SEQS}, N1=N2=288, D=128 (VO; half the "
+                  "launches)",
+         "launches": b_k2, "max_abs_err": b_err["k2"],
+         "ms": b_times[f"K2 vo {BATCH_SEQS}x288x288x128"]["device_ms"],
+         **b_times[f"K2 vo {BATCH_SEQS}x288x288x128"],
+         "map_match": {"shape": f"S={BATCH_SEQS}, N1=256, N2=288, D=128",
+                       **b_times[f"K2 map {BATCH_SEQS}x256x288x128"]}},
     ], "pnp_icp_card_vs_cpu": pnp_err}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -58,6 +58,16 @@
 //    runner-up is min(max(b1, b2), s1, s2), so duplicate columns give
 //    second == best. A rank with no column reports (1e30, 1e30, 0).
 //
+// A batched launch matches S independent problems at once (the sequence
+// axis of run_slam_batched): d1 [S, N1, D], d2 [S, N2, D], valid2 [S, N2]
+// -> [S, N1]. blockIdx.y is the sequence, an axis the cluster (8 x 1 x 1)
+// does not span, so every cluster lies inside one sequence; a block
+// offsets its pointers to that sequence and runs the single launch's
+// code, with the tile size the single launch would pick for N1. Each
+// sequence's rows are therefore bitwise those of a single launch on its
+// inputs, ties and the rank-order merge included. A single problem is a
+// launch at S = 1.
+//
 // An invalid column enters as exactly 1e30f (as the plain version's
 // torch.where does), not through the reference's +BIG norm trick. A row
 // with no valid column ends with best = second = 1e30 and idx = 0.
@@ -174,14 +184,23 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // K2 launch of this shape can go below (timed by chip_smoke.py).
 template <int kBM, int kWarpsN, bool kEmpty>
 __global__ void __launch_bounds__(32 * kBM / 16 * kWarpsN, 2)
-match_stream_kernel(const float* __restrict__ d1,       // [N1, D]
-                    const float* __restrict__ d2,       // [N2, D]
-                    const uint8_t* __restrict__ valid2, // [N2] or null
+match_stream_kernel(const float* __restrict__ d1,       // [S, N1, D]
+                    const float* __restrict__ d2,       // [S, N2, D]
+                    const uint8_t* __restrict__ valid2, // [S, N2] or null
                     int N1, int N2, int D, int vec16,
-                    int64_t* __restrict__ out_idx,      // [N1]
-                    float* __restrict__ out_best,       // [N1]
-                    float* __restrict__ out_second) {   // [N1]
+                    int64_t* __restrict__ out_idx,      // [S, N1]
+                    float* __restrict__ out_best,       // [S, N1]
+                    float* __restrict__ out_second) {   // [S, N1]
   if constexpr (kEmpty) return;
+  {  // this block's sequence
+    const size_t s = blockIdx.y;
+    d1 += s * N1 * D;
+    d2 += s * N2 * D;
+    if (valid2 != nullptr) valid2 += s * N2;
+    out_idx += s * N1;
+    out_best += s * N1;
+    out_second += s * N1;
+  }
   constexpr int kWarpsM = kBM / 16;         // warps over the rows (16 each)
   constexpr int kWarps = kWarpsM * kWarpsN;
   constexpr int kThreads = 32 * kWarps;
@@ -402,8 +421,8 @@ match_stream_kernel(const float* __restrict__ d1,       // [N1, D]
 }
 
 template <int kBM, int kWarpsN, bool kEmpty>
-int launch(const float* d1, const float* d2, const uint8_t* valid2, int N1,
-           int N2, int D, int64_t* idx, float* best, float* second,
+int launch(const float* d1, const float* d2, const uint8_t* valid2, int S,
+           int N1, int N2, int D, int64_t* idx, float* best, float* second,
            cudaStream_t stream) {
   // Once per instantiation, on the first (eager) call: allow the dynamic
   // shared memory of the widest rows, kMaxD.
@@ -415,7 +434,7 @@ int launch(const float* d1, const float* d2, const uint8_t* valid2, int N1,
   const int vec16 = D % 4 == 0 && reinterpret_cast<uintptr_t>(d1) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(d2) % 16 == 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kRanks * ((N1 + kBM - 1) / kBM));
+  cfg.gridDim = dim3(kRanks * ((N1 + kBM - 1) / kBM), S);
   cfg.blockDim = dim3(32 * kBM / 16 * kWarpsN);
   cfg.dynamicSmemBytes = smem_bytes<kBM>(D);
   cfg.stream = stream;
@@ -435,38 +454,43 @@ int launch(const float* d1, const float* d2, const uint8_t* valid2, int N1,
 
 // 64-row tiles once they give two blocks on each SM, else 32-row tiles
 // (the EKF step's 256 rows: 8 clusters of 8, 64 blocks).
+// The choice looks at N1 alone, never at S, so a batched launch runs each
+// sequence with the single launch's tile.
 template <bool kEmpty>
-int dispatch(const float* d1, const float* d2, const uint8_t* valid2, int N1,
-             int N2, int D, int64_t* idx, float* best, float* second,
+int dispatch(const float* d1, const float* d2, const uint8_t* valid2, int S,
+             int N1, int N2, int D, int64_t* idx, float* best, float* second,
              void* stream) {
-  if (N1 < 1 || N2 < 1 || D < 1 || D > kMaxD) {
+  if (S < 1 || S > 65535 || N1 < 1 || N2 < 1 || D < 1 || D > kMaxD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto s = static_cast<cudaStream_t>(stream);
+  const auto st = static_cast<cudaStream_t>(stream);
   if (kRanks * ((N1 + 63) / 64) >= kWaveBlocks) {
-    return launch<64, 2, kEmpty>(d1, d2, valid2, N1, N2, D, idx, best, second, s);
+    return launch<64, 2, kEmpty>(d1, d2, valid2, S, N1, N2, D, idx, best,
+                                 second, st);
   }
-  return launch<32, 4, kEmpty>(d1, d2, valid2, N1, N2, D, idx, best, second, s);
+  return launch<32, 4, kEmpty>(d1, d2, valid2, S, N1, N2, D, idx, best, second,
+                               st);
 }
 
 }  // namespace
 
-// Launches K2 on `stream`. Returns the launch's error, then
-// cudaGetLastError() (0 = cudaSuccess), or cudaErrorInvalidValue without
-// launching when a size is out of range (N1, N2 >= 1, 1 <= D <= 256).
+// Launches K2 over S sequences on `stream` (layouts above; a single
+// problem is S = 1). Returns the launch's error, then cudaGetLastError()
+// (0 = cudaSuccess), or cudaErrorInvalidValue without launching when a
+// size is out of range (1 <= S <= 65535, N1, N2 >= 1, 1 <= D <= 256).
 // `valid2` may be null (every column valid).
 extern "C" int match_stream_launch(const float* d1, const float* d2,
-                                   const uint8_t* valid2, int N1, int N2,
-                                   int D, int64_t* idx, float* best,
+                                   const uint8_t* valid2, int S, int N1,
+                                   int N2, int D, int64_t* idx, float* best,
                                    float* second, void* stream) {
-  return dispatch<false>(d1, d2, valid2, N1, N2, D, idx, best, second,
+  return dispatch<false>(d1, d2, valid2, S, N1, N2, D, idx, best, second,
                          stream);
 }
 
-// An empty kernel at K2's launch configuration for this shape (grid,
-// cluster, threads, dynamic shared memory): the launch floor.
-extern "C" int match_stream_floor_launch(int N1, int N2, int D,
+// An empty kernel at K2's launch configuration for S sequences of this
+// shape (grid, cluster, threads, dynamic shared memory): the launch floor.
+extern "C" int match_stream_floor_launch(int S, int N1, int N2, int D,
                                          void* stream) {
-  return dispatch<true>(nullptr, nullptr, nullptr, N1, N2, D, nullptr,
+  return dispatch<true>(nullptr, nullptr, nullptr, S, N1, N2, D, nullptr,
                         nullptr, nullptr, stream);
 }

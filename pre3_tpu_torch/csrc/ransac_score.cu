@@ -10,6 +10,13 @@
 //
 // The [B, N] residual tensor lives only in registers.
 //
+// A batched launch scores S independent problems at once (the sequence
+// axis of run_slam_batched): r [S, B, 3, 3], t [S, B, 3], p1/p2 [S, N, 3],
+// valid [S, N], thr [S] -> support/err [S, B]. blockIdx.y is the
+// sequence; a block offsets its pointers to that sequence and then runs
+// the single launch's code, so each sequence's rows are bitwise those of
+// a single launch on its inputs. A single problem is a launch at S = 1.
+//
 // What bounds it on this card: at the path's shapes (B = 512 or 1024
 // hypotheses, N = 256 matches) one call is ~28 flops x B x N (3.7 MFLOP at
 // 512: 0.055 us at the 67 TFLOP/s f32 rate) and reads under 40 KB, so
@@ -143,16 +150,27 @@ __device__ __forceinline__ void stage(float* __restrict__ s1,
 // K1 launch can go below (timed by chip_smoke.py).
 template <bool kEmpty>
 __global__ void __launch_bounds__(kThreads)
-ransac_score_kernel(const float* __restrict__ r,      // [B, 3, 3]
-                    const float* __restrict__ t,      // [B, 3]
-                    const float* __restrict__ p1,     // [N, 3]
-                    const float* __restrict__ p2,     // [N, 3]
-                    const uint8_t* __restrict__ valid,  // [N] (torch.bool)
-                    const float* __restrict__ thr_ptr,  // [] squared gate
+ransac_score_kernel(const float* __restrict__ r,      // [S, B, 3, 3]
+                    const float* __restrict__ t,      // [S, B, 3]
+                    const float* __restrict__ p1,     // [S, N, 3]
+                    const float* __restrict__ p2,     // [S, N, 3]
+                    const uint8_t* __restrict__ valid,  // [S, N] (torch.bool)
+                    const float* __restrict__ thr_ptr,  // [S] squared gates
                     int B, int N,
-                    int32_t* __restrict__ support,    // [B]
-                    float* __restrict__ err) {        // [B]
+                    int32_t* __restrict__ support,    // [S, B]
+                    float* __restrict__ err) {        // [S, B]
   if constexpr (kEmpty) return;
+  {  // this block's sequence
+    const size_t s = blockIdx.y;
+    r += s * B * 9;
+    t += s * B * 3;
+    p1 += s * N * 3;
+    p2 += s * N * 3;
+    valid += s * N;
+    thr_ptr += s;
+    support += s * B;
+    err += s * B;
+  }
   __shared__ __align__(16) float s_p1[3 * kChunk];
   __shared__ __align__(16) float s_p2[3 * kChunk];
   __shared__ uint8_t s_valid[kChunk];
@@ -206,10 +224,12 @@ ransac_score_kernel(const float* __restrict__ r,      // [B, 3, 3]
 
 template <bool kEmpty>
 int launch(const float* r, const float* t, const float* p1, const float* p2,
-           const uint8_t* valid, const float* thr, int B, int N,
+           const uint8_t* valid, const float* thr, int S, int B, int N,
            int32_t* support, float* err, void* stream) {
-  if (B < 1 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + kWarps - 1) / kWarps);
+  if (S < 1 || S > 65535 || B < 1 || N < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((B + kWarps - 1) / kWarps, S);
   ransac_score_kernel<kEmpty>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           r, t, p1, p2, valid, thr, B, N, support, err);
@@ -218,20 +238,22 @@ int launch(const float* r, const float* t, const float* p1, const float* p2,
 
 }  // namespace
 
-// Launches K1 on `stream`. Returns cudaGetLastError() after the launch
+// Launches K1 over S sequences on `stream` (layouts above; a single
+// problem is S = 1). Returns cudaGetLastError() after the launch
 // (0 = cudaSuccess), or cudaErrorInvalidValue without launching for
-// B < 1 or N < 0.
+// S < 1, S > 65535, B < 1 or N < 0.
 extern "C" int ransac_score_launch(const float* r, const float* t,
                                    const float* p1, const float* p2,
                                    const uint8_t* valid, const float* thr,
-                                   int B, int N, int32_t* support, float* err,
-                                   void* stream) {
-  return launch<false>(r, t, p1, p2, valid, thr, B, N, support, err, stream);
+                                   int S, int B, int N, int32_t* support,
+                                   float* err, void* stream) {
+  return launch<false>(r, t, p1, p2, valid, thr, S, B, N, support, err,
+                       stream);
 }
 
-// An empty kernel at K1's launch configuration for B hypotheses: the
-// launch floor.
-extern "C" int ransac_score_floor_launch(int B, void* stream) {
-  return launch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B,
-                      0, nullptr, nullptr, stream);
+// An empty kernel at K1's launch configuration for S sequences of B
+// hypotheses: the launch floor.
+extern "C" int ransac_score_floor_launch(int S, int B, void* stream) {
+  return launch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, S,
+                      B, 0, nullptr, nullptr, stream);
 }

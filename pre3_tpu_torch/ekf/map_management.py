@@ -113,13 +113,14 @@ def convert_to_cartesian(
     d = CAM_DIM + k * LM_DIM
     rows = (CAM_DIM + sel[:, None] * LM_DIM
             + torch.arange(LM_DIM, device=dev)[None, :]).reshape(-1)  # [M·6]
-    p = state.p.clone()
+    # index_select/index_copy, not p[rows] = …: vmap batches these
+    p = state.p
     prow = torch.einsum("kab,kbD->kaD", blocks,
-                        p[rows].reshape(m, LM_DIM, d))
-    p[rows] = prow.reshape(m * LM_DIM, d)
+                        p.index_select(0, rows).reshape(m, LM_DIM, d))
+    p = p.index_copy(0, rows, prow.reshape(m * LM_DIM, d))
     pcol = torch.einsum("kab,Dkb->Dka", blocks,
-                        p[:, rows].reshape(d, m, LM_DIM))
-    p[:, rows] = pcol.reshape(d, m * LM_DIM)
+                        p.index_select(1, rows).reshape(d, m, LM_DIM))
+    p = p.index_copy(1, rows, pcol.reshape(d, m * LM_DIM))
 
     pts = inverse_depth_to_cartesian(lms)  # [K, 3]
     new_lms = torch.where(did[:, None], torch.cat([pts, torch.zeros_like(pts)],
@@ -252,8 +253,8 @@ def add_features(
     noise = (std_pxl**2) * torch.einsum("ail,ajl->aij", juv_a, juv_a) + (
         sig_rho**2)[:, None, None] * torch.einsum("ai,aj->aij", jr_a, jr_a)
     noise = torch.where(do[:, None, None], noise, 0.0)
-    ar = torch.arange(a, device=dev)
-    cross[ar, :, ar, :] = cross[ar, :, ar, :] + noise
+    diag = torch.eye(a, dtype=torch.bool, device=dev)[:, None, :, None]
+    cross = torch.where(diag, cross + noise[:, :, None, :], cross)
 
     rows = (CAM_DIM + free_slots[:, None] * LM_DIM
             + torch.arange(LM_DIM, device=dev)[None, :]).reshape(-1)  # [A·6]
@@ -262,20 +263,23 @@ def add_features(
     # values back outside `do`. The rows are distinct (argsort output).
     do_rep = _per_dim(do)  # [A·6]
     strips_flat = strips.reshape(a * LM_DIM, -1)
-    p = state.p.clone()
-    p[rows, :] = torch.where(do_rep[:, None], strips_flat, p[rows, :])
-    p[:, rows] = torch.where(do_rep[None, :], strips_flat.T, p[:, rows])
+    # Scatters as index_copy (out of place, so vmap can batch them).
+    p = state.p
+    p = p.index_copy(0, rows, torch.where(do_rep[:, None], strips_flat,
+                                          p.index_select(0, rows)))
+    p = p.index_copy(1, rows, torch.where(do_rep[None, :], strips_flat.T,
+                                          p.index_select(1, rows)))
     # new×new cross block only where BOTH endpoints are fresh adds
-    blk_idx = (rows[:, None], rows[None, :])
-    p[blk_idx] = torch.where(do_rep[:, None] & do_rep[None, :],
-                             cross.reshape(a * LM_DIM, a * LM_DIM), p[blk_idx])
-    x = state.x.clone()
-    x[rows] = torch.where(do_rep, y_a.reshape(-1), x[rows])
+    strip = p.index_select(0, rows)  # [A·6, D]
+    blk = torch.where(do_rep[:, None] & do_rep[None, :],
+                      cross.reshape(a * LM_DIM, a * LM_DIM),
+                      strip.index_select(1, rows))
+    p = p.index_copy(0, rows, strip.index_copy(1, rows, blk))
+    x = state.x.index_copy(0, rows, torch.where(
+        do_rep, y_a.reshape(-1), state.x.index_select(0, rows)))
 
     def put(field: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-        out = field.clone()
-        out[free_slots] = new
-        return out
+        return field.index_copy(0, free_slots, new)
 
     do2 = do[:, None]
     if cand_patches is not None:

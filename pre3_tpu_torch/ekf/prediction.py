@@ -68,8 +68,11 @@ def _propagate(
     pcl = p[:CAM_DIM, CAM_DIM:]
     pcc_n = f @ pcc @ f.T + q_block
     pcl_n = f @ pcl
-    jfull = torch.eye(CAM_DIM, dtype=p.dtype, device=p.device)
-    jfull[3:7, 3:7] = _norm_jac(cam_new[3:7])
+    # I₁₃ with the normalization Jacobian at [3:7, 3:7], built out of
+    # place so that vmap can batch it
+    eye = torch.eye(CAM_DIM, dtype=p.dtype, device=p.device)
+    jfull = torch.cat([eye[0:3], torch.cat([
+        eye[3:7, 0:3], _norm_jac(cam_new[3:7]), eye[3:7, 7:]], 1), eye[7:]])
     pcc_n = jfull @ pcc_n @ jfull.T
     pcl_n = jfull @ pcl_n
     pcc_n = 0.5 * (pcc_n + pcc_n.T)

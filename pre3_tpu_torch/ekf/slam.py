@@ -16,6 +16,11 @@ NCC scan (``ncc_matching.py``). Estimation methods: 1PRE (above),
 on every IC match); an optional periodic gravity-direction update from a
 floor-plane fit closes the step.
 
+``run_slam_batched`` runs S independent sequences at once: each step is
+one ``torch.func.vmap`` of ``slam_step`` over the sequences, so K1 and K2
+launch once per step for all of them (their custom ops' vmap rules), as
+the reference's tools/measure_batch.py vmaps its ``run_slam``.
+
 The reference's ``lax.scan`` is a Python loop that never reads a value
 back to the host. Its ``lax.cond`` on VO success is a ``torch.where``
 over both branches; its ``lax.cond`` on the step number (the periodic
@@ -27,6 +32,7 @@ cannot be reproduced in torch, so every random draw is an input
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -43,7 +49,7 @@ from pre3_tpu_torch.ekf.measurement import (
 )
 from pre3_tpu_torch.ekf.ncc_matching import search_ic_matches_ncc
 from pre3_tpu_torch.ekf.one_point_ransac import (
-    one_point_ransac, rescue_hi_inliers,
+    one_point_ransac, pool_size, rescue_hi_inliers,
 )
 from pre3_tpu_torch.ekf.prediction import _PN, predict, predict_cv
 from pre3_tpu_torch.ekf.state import CAM_DIM, EkfState, init_state
@@ -55,6 +61,7 @@ from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.quaternion import q2v, qrotate, v2q
 from pre3_tpu_torch.utils.device import to_device
 from pre3_tpu_torch.vo.dead_reckoning import vo_pair
+from pre3_tpu_torch.vo.ransac import _draw_gumbel
 
 
 class SlamConfig(NamedTuple):
@@ -143,6 +150,41 @@ class SlamTrajectory(NamedTuple):
     records: StepRecord  # fields have leading axis F-1
 
 
+def draw_step(
+    cfg: SlamConfig,
+    n_feats: int,
+    n_landmarks: int,
+    generator: torch.Generator | None,
+    device: torch.device | str,
+    draws: StepDraws | None = None,
+) -> StepDraws:
+    """One step's draws: the fields ``draws`` sets, and every other draw
+    the step consumes under ``cfg`` taken from ``generator`` in the order
+    slam_step consumes them: VO RANSAC [vo_batch, n_feats], 1-PRE
+    [ransac_batch, pool] and add sampling [n_feats] ("weighted" only).
+    The attitude update's plane fit, the step's last draw, stays with
+    ``floor_up_direction``. Without a generator the missing fields stay
+    None."""
+    d = StepDraws() if draws is None else draws
+    if generator is None:
+        return d
+
+    def take(field, needed, shape):
+        if field is not None or not needed:
+            return field
+        return _draw_gumbel(shape, generator, device=device)
+
+    ms = cfg.max_update_slots if cfg.max_update_slots > 0 else None
+    return StepDraws(
+        vo=take(d.vo, cfg.motion_model != "cv", (cfg.vo_batch, n_feats)),
+        ransac=take(d.ransac, cfg.est_method not in ("pure_ekf", "iekf")
+                    and not cfg.only_predict,
+                    (cfg.ransac_batch, pool_size(n_landmarks, ms))),
+        add=take(d.add, cfg.init_sampling == "weighted", (n_feats,)),
+        heading=d.heading,
+    )
+
+
 def _where_state(cond: torch.Tensor, a: EkfState, b: EkfState) -> EkfState:
     """Field-wise ``torch.where`` of two states (both branches computed)."""
     return EkfState(*(torch.where(cond, u, v) for u, v in zip(a, b)))
@@ -162,7 +204,9 @@ def slam_step(
     host_step: int | None = None,
 ) -> tuple[EkfState, tuple[StepStats, StepRecord]]:
     """One EKF-SLAM step. ``draws`` supplies the step's Gumbel noise;
-    fields it leaves None are drawn from ``generator``. With
+    fields it leaves None are drawn from ``generator``: the RANSACs' and
+    the add sampling's before anything else runs (``draw_step``), the
+    plane fit's where it runs. With
     cfg.heading_update_every = N > 0 the step needs its xyz image and
     ``host_step``, its index as a host integer (``step`` lives on the
     device): where host_step % N == 0 the floor plane is fitted and the
@@ -174,8 +218,9 @@ def slam_step(
     if cfg.heading_update_every > 0 and (xyz_img is None or host_step is None):
         raise ValueError("heading_update_every > 0 needs per-frame xyz "
                          "images and the step's host index (host_step)")
-    draws = StepDraws() if draws is None else draws
     dev, dt = state.x.device, state.x.dtype
+    draws = draw_step(cfg, frame.uv.shape[0], state.n_landmarks, generator,
+                      dev, draws)
 
     # 1. VO control input + prediction, with the estimated VO covariance
     # (mapped [dt, dω] → [dX, dq]) plus the reference's floor as noise
@@ -186,7 +231,7 @@ def slam_step(
         vo_inliers = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         vo = vo_pair(
-            prev_frame, frame, gumbel=draws.vo, generator=generator,
+            prev_frame, frame, gumbel=draws.vo,
             batch=cfg.vo_batch, with_covariance=cfg.vo_noise_from_covariance,
             range_weighted_refit=cfg.vo_range_weighted,
         )
@@ -196,9 +241,12 @@ def slam_step(
         q_pre = state.x[3:7]  # orientation BEFORE prediction
         if cfg.vo_noise_from_covariance:
             jq = jacfwd(v2q)(q2v(vo.delta.q))  # [4, 3] ∂q/∂ω at the fit
-            j = torch.zeros((7, 6), dtype=dt, device=dev)
-            j[:3, :3] = torch.eye(3, dtype=dt, device=dev)
-            j[3:, 3:] = jq
+            # blockdiag(I₃, jq), built out of place so that vmap can
+            # batch jq
+            j = torch.cat([
+                torch.eye(3, 6, dtype=dt, device=dev),
+                torch.cat([torch.zeros((4, 3), dtype=dt, device=dev), jq], 1),
+            ])
             pn = j @ vo.cov @ j.T + to_device(_PN, dev)
             # failed VO: large-ish identity-motion uncertainty
             pn = torch.where(vo.ok, pn,
@@ -256,7 +304,6 @@ def slam_step(
         li = one_point_ransac(
             cam_model, state, obs, batch=cfg.ransac_batch, std_z=cfg.std_z,
             n_points=cfg.ransac_points, max_slots=ms, gumbel=draws.ransac,
-            generator=generator,
         )
         state = kalman_update(state, obs, li, std_z=cfg.std_z, max_slots=ms)
         hi, obs2 = rescue_hi_inliers(cam_model, state, obs, li,
@@ -284,7 +331,7 @@ def slam_step(
         min_measured=cfg.min_measured, std_pxl=cfg.std_z,
         depth_range_quadratic=cfg.depth_range_quadratic,
         depth_range_d0=cfg.depth_range_d0, image=image,
-        sampling=cfg.init_sampling, gumbel=draws.add, generator=generator,
+        sampling=cfg.init_sampling, gumbel=draws.add,
     )
 
     # periodic gravity-direction correction from a floor-plane fit, on the
@@ -436,4 +483,144 @@ def run_slam(
         t=torch.cat([torch.zeros((1, 3), dtype=ts.dtype, device=dev), ts]),
         q=torch.cat([state0.x[3:7][None], qs]),  # identity, or the prior
         stats=stats, records=records,
+    )
+
+
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """Turn off vmap's per-sample fallback: inside, an op without a
+    batching rule raises instead of looping over the batch."""
+    prev = torch._C._functorch._is_vmap_fallback_enabled()
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(prev)
+
+
+def _stack(rows, cls, dim: int = 0):
+    return cls(*(torch.stack(f, dim) for f in zip(*rows)))
+
+
+def _check_batched(cfg: SlamConfig) -> None:
+    if cfg.matcher != "desc" or cfg.heading_update_every > 0:
+        raise ValueError("run_slam_batched runs the descriptor matcher "
+                         "without the periodic attitude update")
+
+
+def bootstrap_batched(
+    cam_model: Camera,
+    first: Features,  # frame 0 of each sequence, leading axis S
+    cfg: SlamConfig = SlamConfig(),
+    n_landmarks: int = 64,
+    boot_add: torch.Tensor | None = None,  # [S, Kf] ("weighted" only)
+    generators: list[torch.Generator] | None = None,
+) -> EkfState:
+    """``bootstrap_state`` of each sequence, stacked on a leading S axis
+    (no plane-fit prior: the batched path takes no xyz images)."""
+    _check_batched(cfg)
+    n_seq = first.uv.shape[0]
+    return _stack([bootstrap_state(
+        cam_model, Features(*(x[s] for x in first)), cfg, n_landmarks,
+        add_gumbel=None if boot_add is None else boot_add[s],
+        generator=None if generators is None else generators[s])
+        for s in range(n_seq)], EkfState)
+
+
+def draw_batched(
+    cfg: SlamConfig,
+    n_feats: int,
+    n_landmarks: int,
+    generators: list[torch.Generator] | None,
+    device: torch.device | str,
+    draws: StepDraws | None = None,  # fields with a leading S axis
+) -> StepDraws:
+    """One batched step's draws: ``draws``' fields, and every other draw
+    taken from ``generators[s]`` by ``draw_step`` (outside any vmap),
+    stacked on a leading S axis."""
+    d = StepDraws() if draws is None else draws
+    if generators is None:
+        return d
+    rows = [draw_step(cfg, n_feats, n_landmarks, g, device, StepDraws(*(
+        None if f is None else f[s] for f in d)))
+        for s, g in enumerate(generators)]
+    return StepDraws(*(None if f[0] is None else torch.stack(f)
+                       for f in zip(*rows)))
+
+
+def slam_step_batched(
+    cam_model: Camera,
+    state: EkfState,  # leading axis S
+    frame: Features,  # leading axis S
+    prev_frame: Features,  # leading axis S
+    step: torch.Tensor,  # [] int32, shared
+    cfg: SlamConfig = SlamConfig(),
+    draws: StepDraws | None = None,  # fields with a leading S axis
+) -> tuple[EkfState, tuple[StepStats, StepRecord]]:
+    """``slam_step`` of S sequences as one ``torch.func.vmap`` with vmap's
+    per-sample fallback off (an op without a batching rule raises); K1
+    and K2 launch once for all S. Every draw the step consumes must be in
+    ``draws`` (``draw_batched``)."""
+    _check_batched(cfg)
+    d = StepDraws() if draws is None else draws
+    dims = StepDraws(*(None if f is None else 0 for f in d))
+
+    def one(st, cur, prev, dd, stp):
+        return slam_step(cam_model, st, cur, prev, stp, cfg, draws=dd)
+
+    with no_vmap_fallback():
+        return torch.func.vmap(one, in_dims=(0, 0, 0, dims, None))(
+            state, frame, prev_frame, d, step)
+
+
+def run_slam_batched(
+    cam_model: Camera,
+    feats: Features,  # stacked, leading axes [S, F]
+    cfg: SlamConfig = SlamConfig(),
+    n_landmarks: int = 64,
+    draws: SlamDraws | None = None,
+    generators: list[torch.Generator] | None = None,
+) -> SlamTrajectory:
+    """Run EKF-SLAM over S independent sequences at once (the reference's
+    ``jax.vmap(run_slam)`` in tools/measure_batch.py):
+    ``bootstrap_batched``, then each of the F−1 steps as one
+    ``slam_step_batched``, so K1 and K2 launch once per step for all S.
+
+    ``draws``: a SlamDraws whose fields carry a leading S axis; whatever
+    it leaves None comes from ``generators[s]``, one per sequence, drawn
+    outside the vmap (``draw_batched``) in the order a single run_slam
+    draws it, so sequence s matches ``run_slam(..., generator=
+    generators[s])``. Returns a SlamTrajectory whose fields have a
+    leading S axis. The descriptor matcher only, without the periodic
+    attitude update (no per-frame images)."""
+    _check_batched(cfg)
+    n_seq, n_frames, n_feats = feats.uv.shape[:3]
+    if generators is not None and len(generators) != n_seq:
+        raise ValueError(f"run_slam_batched: {len(generators)} generators "
+                         f"for {n_seq} sequences")
+    draws = SlamDraws(steps=StepDraws()) if draws is None else draws
+    dev = feats.uv.device
+    state = bootstrap_batched(cam_model, Features(*(x[:, 0] for x in feats)),
+                              cfg, n_landmarks, draws.boot_add, generators)
+    q0 = state.x[:, 3:7]
+    steps = torch.arange(1, n_frames, dtype=torch.int32, device=dev)
+    ts, qs, stats, records = [], [], [], []
+    for i in range(1, n_frames):
+        d = draw_batched(cfg, n_feats, n_landmarks, generators, dev,
+                         StepDraws(*(None if f is None else f[:, i - 1]
+                                     for f in draws.steps)))
+        state, (st, rec) = slam_step_batched(
+            cam_model, state, Features(*(x[:, i] for x in feats)),
+            Features(*(x[:, i - 1] for x in feats)), steps[i - 1], cfg, d)
+        ts.append(state.x[:, 0:3])
+        qs.append(state.x[:, 3:7])
+        stats.append(st)
+        records.append(rec)
+    ts, qs = torch.stack(ts, 1), torch.stack(qs, 1)
+    return SlamTrajectory(
+        t=torch.cat([torch.zeros((n_seq, 1, 3), dtype=ts.dtype, device=dev),
+                     ts], 1),
+        q=torch.cat([q0[:, None], qs], 1),
+        stats=_stack(stats, StepStats, 1),
+        records=_stack(records, StepRecord, 1),
     )

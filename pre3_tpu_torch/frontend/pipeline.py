@@ -69,6 +69,20 @@ def extract_features_sift(
                     score=f.score)
 
 
+def extract_sequences(extract, intensity: torch.Tensor, xyz: torch.Tensor,
+                      confidence: torch.Tensor, **kwargs) -> Features:
+    """``extract`` (``extract_features`` or ``extract_features_sift``)
+    over S sequences of F frames ([S, F, H, W] ...) as one call over the
+    S·F frames (the SIFT frontend runs them in its 64-frame chunks);
+    every field of the result has the leading axes [S, F]. The
+    reference's tools/measure_batch.py maps its frontend over the
+    sequences."""
+    s, f = intensity.shape[:2]
+    out = extract(intensity.flatten(0, 1), xyz.flatten(0, 1),
+                  confidence.flatten(0, 1), **kwargs)
+    return Features(*(x.unflatten(0, (s, f)) for x in out))
+
+
 def _check_frames(name, intensity, xyz, confidence) -> None:
     if intensity.dim() != 3 or xyz.shape != (*intensity.shape, 3) or (
         confidence.shape != intensity.shape

@@ -15,6 +15,13 @@ smallest distances, and the ratio test (accept when best·ratio < second).
   match_descriptors_auto — the production matcher: K2's wrapper for every
                          unmasked match, the plain version with a
                          ``pair_mask``.
+
+K2's wrapper goes through the custom op ``pre3_tpu_torch::match_stream``,
+so ``torch.func.vmap`` can reach the kernel: the op's vmap rule moves the
+batch axis to the front, expands the unbatched arguments (a shared d2,
+say) and calls the op again with that leading sequence axis, ONE launch
+of K2 on the card (on the CPU, the plain version per sequence). The op
+takes one sequence axis at most, so nested vmap raises.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from pre3_tpu_torch.utils.cuda_build import load_library
+from pre3_tpu_torch.utils.vmap_ops import check_not_batched, to_front
 
 BIG = 1e30
 K2_MAX_DIM = 256  # widest rows K2 stages in shared memory (kMaxD)
@@ -100,11 +108,11 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("match_stream")
     fn = lib.match_stream_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
         floor = lib.match_stream_floor_launch
-        floor.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        floor.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         floor.restype = ctypes.c_int
     return lib
 
@@ -121,42 +129,98 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
         )
 
 
-def _launch_k2(d1: torch.Tensor, d2: torch.Tensor,
-               valid2: torch.Tensor | None):
-    """K2 alone on CUDA tensors: (index, best, second) per row of d1.
-    Raises on what the kernel does not take, and on a failed launch."""
-    if d1.dim() != 2 or d2.dim() != 2 or d1.shape[1] != d2.shape[1]:
+def _k2_sizes(d1: torch.Tensor, d2: torch.Tensor):
+    """(lead, N1, N2, D) of what K2 takes, lead () or (S,); raises on
+    any other shape."""
+    if d1.dim() not in (2, 3) or d2.dim() != d1.dim() or (
+        d1.shape[:-2] != d2.shape[:-2] or d1.shape[-1] != d2.shape[-1]
+    ):
         raise ValueError(
-            "match_descriptors_k2 takes d1 [N1, D] and d2 [N2, D]; got "
-            f"{tuple(d1.shape)} and {tuple(d2.shape)}")
-    (n1, d), n2 = d1.shape, d2.shape[0]
+            "match_descriptors_k2 takes d1 [N1, D] and d2 [N2, D] (or both "
+            f"with a leading sequence axis); got {tuple(d1.shape)} and "
+            f"{tuple(d2.shape)}")
+    (n1, d), n2 = d1.shape[-2:], d2.shape[-2]
     if n2 < 1 or not 1 <= d <= K2_MAX_DIM:
         raise ValueError(f"match_descriptors_k2: needs N2 ≥ 1 and 1 ≤ D ≤ "
                          f"{K2_MAX_DIM}; got N2={n2}, D={d}")
+    return tuple(d1.shape[:-2]), n1, n2, d
+
+
+def _launch_k2(d1: torch.Tensor, d2: torch.Tensor,
+               valid2: torch.Tensor | None):
+    """K2 alone on CUDA tensors: (index, best, second) per row of d1
+    [N1, D] against d2 [N2, D], or, with a leading sequence axis on every
+    argument (d1 [S, N1, D], d2 [S, N2, D], valid2 [S, N2]), S problems
+    in one batched launch. Raises on what the kernel does not take, on a
+    vmapped tensor, and on a failed launch."""
+    check_not_batched("match_descriptors_k2", d1, d2, valid2)
+    lead, n1, n2, d = _k2_sizes(d1, d2)
     device = d1.device
     if device.type != "cuda":
         raise ValueError(f"match_descriptors_k2: no kernel for device {device}")
-    _check("d1", d1, torch.float32, (n1, d), device)
-    _check("d2", d2, torch.float32, (n2, d), device)
+    _check("d1", d1, torch.float32, (*lead, n1, d), device)
+    _check("d2", d2, torch.float32, (*lead, n2, d), device)
     if valid2 is not None:
-        _check("valid2", valid2, torch.bool, (n2,), device)
-    idx = torch.empty(n1, dtype=torch.int64, device=device)
-    best = torch.empty(n1, dtype=torch.float32, device=device)
-    second = torch.empty(n1, dtype=torch.float32, device=device)
-    if n1:
+        _check("valid2", valid2, torch.bool, (*lead, n2), device)
+    idx = torch.empty((*lead, n1), dtype=torch.int64, device=device)
+    best = torch.empty((*lead, n1), dtype=torch.float32, device=device)
+    second = torch.empty((*lead, n1), dtype=torch.float32, device=device)
+    if n1 and 0 not in lead:
         lib = _lib()
+        ptrs = (d1.data_ptr(), d2.data_ptr(),
+                0 if valid2 is None else valid2.data_ptr())
+        outs = (idx.data_ptr(), best.data_ptr(), second.data_ptr())
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.match_stream_launch(
-                d1.data_ptr(), d2.data_ptr(),
-                0 if valid2 is None else valid2.data_ptr(), n1, n2, d,
-                idx.data_ptr(), best.data_ptr(), second.data_ptr(), stream,
-            )
+            s = lead[0] if lead else 1
+            rc = lib.match_stream_launch(*ptrs, s, n1, n2, d, *outs, stream)
         if rc != 0:
             raise RuntimeError(f"match_stream kernel launch failed: cudaError "
-                               f"{rc} (N1={n1}, N2={n2}, D={d})")
+                               f"{rc} (S={s}, N1={n1}, N2={n2}, D={d})")
         match_descriptors_k2.launches += 1
     return idx, best, second
+
+
+def _plain_k2(d1, d2, valid2):
+    m = match_descriptors(d1, d2, valid2=valid2)
+    return m.index, m.dist2, m.dist2_second
+
+
+def _run_k2(d1, d2, valid2):
+    """What the custom op computes: K2 on the card, one launch for one
+    problem (d1 [N1, D]) or for a leading sequence axis (d1 [S, N1, D]);
+    on the CPU the plain matcher's (index, best, second), per sequence
+    for a sequence axis. A second leading axis (nested vmap) raises."""
+    if d1.dim() > 3:
+        raise RuntimeError(
+            f"match_descriptors_k2: nested vmap is not supported; the kernel "
+            f"takes one sequence axis (d1 {tuple(d1.shape)})")
+    if d1.device.type != "cpu":
+        return _launch_k2(d1, d2, valid2)
+    if d1.dim() == 2:
+        return _plain_k2(d1, d2, valid2)
+    v2 = [None] * d1.shape[0] if valid2 is None else valid2
+    rows = [_plain_k2(*xs) for xs in zip(d1, d2, v2)]
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+@torch.library.custom_op(
+    "pre3_tpu_torch::match_stream", mutates_args=(),
+    schema="(Tensor d1, Tensor d2, Tensor? valid2) -> (Tensor, Tensor, Tensor)")
+def _k2_op(d1, d2, valid2):
+    return _run_k2(d1, d2, valid2)
+
+
+@_k2_op.register_fake
+def _k2_fake(d1, d2, valid2):
+    shape = d1.shape[:-1]
+    return (d1.new_empty(shape, dtype=torch.int64), d1.new_empty(shape),
+            d1.new_empty(shape))
+
+
+@_k2_op.register_vmap
+def _k2_vmap(info, in_dims, *args):
+    return _k2_op(*to_front(info.batch_size, in_dims, args)), (0, 0, 0)
 
 
 def match_descriptors_k2(
@@ -167,15 +231,19 @@ def match_descriptors_k2(
     ratio: float = 1.5,
 ) -> Matches:
     """Streaming matcher: kernel K2 for CUDA tensors, the plain version
-    for CPU tensors. Nothing falls back: a CUDA input the kernel does not
-    take raises. The ratio test and ``valid1`` are applied after the
-    kernel, as the reference does.
+    for CPU tensors; under ``torch.func.vmap`` one batched launch for all
+    sequences. Nothing falls back: a CUDA input the kernel does not take
+    raises. The ratio test and ``valid1`` are applied after the kernel,
+    as the reference does.
 
-    ``match_descriptors_k2.launches`` counts kernel launches."""
-    if d1.device.type == "cpu":
-        return match_descriptors(d1, d2, valid1=valid1, valid2=valid2,
-                                 ratio=ratio)
-    idx, best, second = _launch_k2(d1, d2, valid2)
+    ``match_descriptors_k2.launches`` counts kernel launches (a batched
+    launch counts one)."""
+    if d1.device.type != "cpu":
+        _k2_sizes(d1, d2)  # shape errors first, before any device work
+        if d1.device.type != "cuda":
+            raise ValueError(f"match_descriptors_k2: no kernel for device "
+                             f"{d1.device}")
+    idx, best, second = _k2_op(d1, d2, valid2)
     return Matches(index=idx, dist2=best, dist2_second=second,
                    accepted=_ratio_test(best, second, ratio, valid1))
 

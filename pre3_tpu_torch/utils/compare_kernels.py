@@ -33,8 +33,8 @@ from pre3_tpu_torch.utils.cuda_build import NVCC_FLAGS, build_library, find_nvcc
 
 ROOT = Path(__file__).resolve().parents[2]
 P, I = ctypes.c_void_p, ctypes.c_int
-K1_ARGS = [P] * 6 + [I, I] + [P] * 3
-K2_ARGS = [P] * 3 + [I] * 3 + [P] * 4
+K1_ARGS = [P] * 6 + [I] * 3 + [P] * 3
+K2_ARGS = [P] * 3 + [I] * 4 + [P] * 4
 
 
 def _build(src: Path) -> ctypes.CDLL:
@@ -54,7 +54,7 @@ def _k1(lib, args):
     ptrs = [x.data_ptr() for x in args]
 
     def launch():
-        rc = lib.ransac_score_launch(*ptrs, b, n, support.data_ptr(),
+        rc = lib.ransac_score_launch(*ptrs, 1, b, n, support.data_ptr(),
                                      err.data_ptr(),
                                      torch.cuda.current_stream().cuda_stream)
         if rc:
@@ -71,7 +71,7 @@ def _k2(lib, d1, d2, valid2):
 
     def launch():
         rc = lib.match_stream_launch(
-            d1.data_ptr(), d2.data_ptr(), valid2.data_ptr(), n1, n2, d,
+            d1.data_ptr(), d2.data_ptr(), valid2.data_ptr(), 1, n1, n2, d,
             idx.data_ptr(), best.data_ptr(), second.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         if rc:

@@ -9,7 +9,12 @@ points, noise 0.004, 1.5 cm per frame) cut to ``--frames`` frames:
             __graft_entry__ configuration), ``process()`` per frame;
   ncc       config #2: ``run_slam`` at K=256 on FAST features with the
             warped-patch NCC matcher, every frame's intensity and xyz
-            image given (bench.py ``fast_ncc_pipeline``).
+            image given (bench.py ``fast_ncc_pipeline``);
+  wrappers  the host time per eager call of K1's and K2's wrappers
+            (``score_hypotheses``, ``match_descriptors_k2``) at every
+            single-launch shape of chip_smoke.py phase 3, timed as there
+            (``chip_smoke.wrapper_ms`` on ``scorer_problem`` /
+            ``matcher_problem`` inputs).
 
 For each: host time per frame unprofiled (host clock around a
 synchronize, median of ``--reps``), and from one profiled run the kernel
@@ -19,7 +24,7 @@ launches per frame (runtime launch calls), the device busy time per frame
 time in the last EKF part profiled. Run it from the root of a checkout:
 
     python3 -m pre3_tpu_torch.utils.profile_slice --frames 48 \
-        [--parts frontend,run_slam,online,ncc]
+        [--parts frontend,run_slam,online,ncc,wrappers]
 
 At 48 frames it takes ~14 minutes on an H100, most of it the profiler
 collecting ~5000 launches per EKF step; the default 24 frames, about
@@ -31,7 +36,9 @@ from __future__ import annotations
 import argparse
 import statistics
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,6 +51,8 @@ from pre3_tpu_torch.frontend.pipeline import (
     extract_features, extract_features_sift,
 )
 from pre3_tpu_torch.geometry.camera import sr4000_camera
+from pre3_tpu_torch.ops.matching import match_descriptors_k2
+from pre3_tpu_torch.ops.ransac_score import score_hypotheses
 from pre3_tpu_torch.runtime.online import OnlineSlam
 
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -88,6 +97,32 @@ def report(name: str, fn, n: int, reps: int):
     return avgs
 
 
+# K1's (B, N) and K2's (N1, N2, D) single-launch shapes in smoke phase 3
+K1_SHAPES = ((512, 288), (512, 256), (1024, 256), (1024, 288), (512, 128),
+             (2048, 288), (512, 96), (64, 64))
+K2_SHAPES = ((288, 288, 128), (256, 288, 128), (512, 288, 128),
+             (256, 256, 121), (128, 128, 121), (64, 128, 121), (96, 96, 121),
+             (24, 96, 121))
+
+
+def wrappers() -> None:
+    """Host µs per eager call of K1's and K2's wrappers, each shape as
+    chip_smoke.py phase 3 times it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke as cs
+
+    for b, n in K1_SHAPES:
+        args = cs.scorer_problem(b, n, 10)
+        us = 1e3 * cs.wrapper_ms(lambda: score_hypotheses(*args))
+        print(f"[wrappers] K1 ({b}, {n}): {us:.1f} µs per call", flush=True)
+    for n1, n2, d in K2_SHAPES:
+        d1, d2, v1, v2 = cs.matcher_problem(n1, n2, d, 11)
+        us = 1e3 * cs.wrapper_ms(
+            lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3))
+        print(f"[wrappers] K2 {n1}x{n2}x{d}: {us:.1f} µs per call",
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=24)
@@ -116,6 +151,8 @@ def main() -> None:
              generator=torch.Generator("cuda").manual_seed(0))
 
     avgs = None
+    if "wrappers" in parts:
+        wrappers()
     if "frontend" in parts:
         report("frontend", lambda: extract_features_sift(*im), n, args.reps)
     if "run_slam" in parts:

@@ -30,12 +30,19 @@ computes it. ``--config`` picks the slice:
         0.05 with 128 features, K = 64, SlamConfig(match_ratio=1.3,
         initial_orientation=True)), then select_keyframes(16) →
         make_ba_problem_from_tracks(max_tracks=128) → bundle_adjust(8) →
-        apply_ba_corrections; the online and the post-BA ATE.
+        apply_ba_corrections; the online and the post-BA ATE;
+  batch the multi-sequence path's corridors
+        (pre3_tpu_torch/utils/measure_batch.py, the reference's
+        tools/measure_batch.py): ``--sequences`` corridors of
+        ``--frames`` frames (832 points, noise 0.004, x from -1.8 to
+        0.015·F + 1.8, scene_seed=b, traj_seed=100 + b), the sift run on
+        each; the ATE per sequence and over all of them.
 
 Run it from the root of a checkout:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python3 tools/jax_sift_ate_band.py \\
-        [--config sift|ncc|ba|loop|dat] [--keys 7]
+        [--config sift|ncc|ba|loop|dat|batch] [--keys 7] \\
+        [--frames 32 --sequences 16]
 
 (a few minutes per configuration on a CPU). The SIFT frontend runs one
 frame per call (one compiled program), so the peak memory stays that of
@@ -202,15 +209,44 @@ def _dat_band(n_keys: int) -> None:
               flush=True)
 
 
+def _batch_band(n_keys: int, n_frames: int, n_seq: int) -> None:
+    """The batch config: each corridor's SLAM ATE over the keys."""
+    cam = sr4000_camera()
+    run = jax.jit(lambda f, k: run_slam(cam, f, k, cfg=CFG,
+                                        n_landmarks=N_LANDMARKS))
+    every = []
+    for b in range(n_seq):
+        frames, traj, _ = render_sequence(
+            n_frames=n_frames, n_points=832, noise=0.004,
+            x_range=(-1.8, 0.015 * n_frames + 1.8), scene_seed=b,
+            traj_seed=100 + b)
+        gt = (traj.t - traj.t[0]) @ traj.r[0]
+        feats = _sift(frames)
+        ates = [float(ate_rmse(np.asarray(run(feats, jax.random.PRNGKey(k)).t),
+                               gt, align=False)) for k in range(n_keys)]
+        every += ates
+        print(f"batch sequence {b}: ATE over keys 0..{n_keys - 1}: min "
+              f"{min(ates):.4f}, max {max(ates):.4f}, mean "
+              f"{np.mean(ates):.4f} m", flush=True)
+    print(f"batch, {n_seq} sequences x {n_frames} frames: ATE min "
+          f"{min(every):.4f}, max {max(every):.4f}, mean "
+          f"{np.mean(every):.4f} m", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("sift", "ncc", "ba", "loop", "dat"),
-                    default="sift")
+    ap.add_argument("--config", choices=("sift", "ncc", "ba", "loop", "dat",
+                                         "batch"), default="sift")
     ap.add_argument("--keys", type=int, default=7)
+    ap.add_argument("--frames", type=int, default=32)  # batch only
+    ap.add_argument("--sequences", type=int, default=16)  # batch only
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     if args.config == "dat":
         _dat_band(args.keys)
+        return
+    if args.config == "batch":
+        _batch_band(args.keys, args.frames, args.sequences)
         return
     cam = sr4000_camera()
     frames, gt = _scene(loop=args.config == "loop")
