@@ -28,7 +28,12 @@ CUDA kernel of those paths against its plain PyTorch version:
   * the multi-sequence path (``pre3_tpu_torch/utils/measure_batch.py``):
     ``extract_features_sift`` over S·F frames → ``run_slam_batched``, one
     ``torch.func.vmap(slam_step)`` over S sequences per step, K1 and K2
-    launched once per step for all of them with a sequence axis.
+    launched once per step for all of them with a sequence axis;
+  * the SIFT frontend's fast-math branch (``PRE3_SIFT_FAST_MATH=1``: bf16
+    band filters on the tensor cores, bf16 descriptor taps) into
+    ``run_slam``, and the full-engine walkthrough
+    (``python3 -m pre3_tpu_torch.examples.run_synthetic_slam``: SIFT → VO
+    → ``run_slam`` → keyframes → BA → smoothing → plots and PLY).
 
 Run it from the root of a checkout:
 
@@ -116,7 +121,18 @@ device, and imports nothing of JAX. Phases:
                   S = 1, 4, 16 over 32 frames with vmap's fallback off and
                   host syncs raising: K1 = 1 and K2 = 2 launches per
                   batched step, frames/s, launches and device busy per
-                  step, idle share, peak memory, ATE.
+                  step, idle share, peak memory, ATE;
+ 23. fast-sift-walkthrough — 23a 8 corridor frames through
+                  extract_features_sift with the fast-math branch, card vs
+                  the port's CPU path (keypoints as sets, descriptors),
+                  and against the card's exact branch; 23b the frontend's
+                  device time per frame over one 64-frame chunk, exact and
+                  fast in turns, and the fast chunk's bf16 GEMMs; 23c a
+                  32-frame fast-branch run_slam on corridor 0 of phase
+                  22: K1 and K2 launches, ATE in the JAX fast band; 23d
+                  examples/run_synthetic_slam.main at 32 frames: every
+                  stage, K1/K2 per stage, BA cost, the PLY, three ATEs.
+                  PRE3_SIFT_FAST_MATH is put back as it was found.
 
 Each phase prints its seconds (``[time]`` lines).
 
@@ -127,6 +143,7 @@ script exits non-zero without printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -139,6 +156,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 ROOT = Path(__file__).resolve().parent
 
@@ -348,6 +366,43 @@ BATCH_ATE_MEANS = (0.1116, 0.0463, 0.0641, 0.0938, 0.1375, 0.0777, 0.0823,
                    0.0873, 0.0305)
 BATCH_ATE_REL = 0.3
 
+# Phase 23 (fast-sift-walkthrough): the SIFT frontend's fast-math branch
+# (PRE3_SIFT_FAST_MATH=1: bf16 band filters on the tensor cores, bf16
+# descriptor taps) and examples/run_synthetic_slam.py. 23a: 8 corridor
+# frames from each of four windows, card vs the port's CPU path.
+# Keypoints as sets (phase 9's share); descriptors: bf16 values that
+# differ by an f32 ulp can round to neighbouring bf16 values, one
+# spacing being 2^-8–2^-7 of a binned tap. Card against CPU, the four
+# windows read a largest error of 2.7e-4–6.9e-4 and a median of 3e-8 on
+# an H100 (PERF.md §6); the exact branch against the fast one reads
+# median 6.5e-4. So every match within 1e-3, the median within 1e-5.
+# Against the card's exact branch, the reference test's criteria
+# (tests/test_sift.py:263-267): ≥ 80% of the keypoint count, > 80% of
+# exact keypoints with a fast one within 1 px, co-located descriptors'
+# median cosine > 0.99.
+FAST_FRAMES, FAST_WINDOWS = 8, (0, 64, 128, 192)
+FAST_DESC_TOL, FAST_DESC_MEDIAN = 1e-3, 1e-5
+# 23b: one 64-frame chunk (the frontend's FRAME_CHUNK), profiled in turns
+# exact, fast, fast, exact after a warm-up of each. A bf16 GEMM is a
+# device kernel whose name holds "bf16" or cuBLASLt's "nvjet_t" (bf16
+# operands): at least one per product, two per level and octave, 3 × 6 ×
+# 2 per fast chunk, and none in an exact one. The band filters' device
+# time is that of the kernels launched inside BAND_RANGE, a profiler
+# range around each _tri_sepconv call.
+BAND_OCTAVES, BAND_LEVELS, BAND_RANGE = 3, 6, "sift._tri_sepconv"
+FAST_CHUNK, FAST_GEMMS = 64, 36
+# 23c: corridor 0 of the multi-sequence recipe (phase 22), 32 frames,
+# K=256, the fast branch. The JAX reference on the CPU with its fast
+# branch (tools/jax_sift_ate_band.py --config batch --frames 32
+# --sequences 1 --fast-math) gives 0.1105–0.1126 m over keys 0..6, mean
+# 0.1116, the exact branch's figures to four digits (PERF.md §2); the
+# band is the mean ± 0.3× it, as 22c's.
+FAST_ATE_MEAN = 0.1116
+# 23d: examples/run_synthetic_slam.main at its defaults (32 frames, 400
+# points): sanity bounds (no JAX band: the reference's walkthrough at 16
+# frames gives VO 0.0415, SLAM 0.0252, smoothed 0.0244 m on the CPU).
+WALK_FRAMES, WALK_ATE_MAX = 32, 0.5
+
 # K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
 # is below this relative gap may legitimately resolve either way.
 K2_MARGIN = 1e-5
@@ -358,6 +413,7 @@ GRAPH_CALLS, GRAPH_REPLAYS, GRAPH_READINGS = 20, 10, 5
 H100_BYTES_PER_S = 3.35e12
 H100_TF32_FLOPS = 495e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 
 
 def phase(name: str, msg: str) -> None:
@@ -698,7 +754,8 @@ def check_k2():
     tracks' table with its zero, inactive rows among them) and the corner
     cases, those of the cluster's column split among them; graph replay
     vs eager; timings at the slices' shapes (256²×121, 288²×128,
-    256×288×128, the keyframe tracks' 512×288×128, the .dat path's
+    256×288×128, the keyframe tracks' 512×288×128, the map match at K=64
+    of OnlineSlam and the walkthrough, 64×288×128, the .dat path's
     128²×121 and 64×128×121, the dry run's FAST 96²×121 and 24×96×121)
     and at 4096² and 8192², which no path of the repo reaches."""
     from pre3_tpu_torch.ops.matching import (
@@ -713,6 +770,8 @@ def check_k2():
         ("tracks-512x288-d128", 512, 288, 128, 16),
         ("dat-128x128-d121", 128, 128, 121, 22),
         ("dat-map-64x128-d121", 64, 128, 121, 23),
+        # the map match at K=64: OnlineSlam (phase 11), the walkthrough
+        ("k64-map-64x288-d128", 64, 288, 128, 26),
         ("dryrun-vo-96x96-d121", 96, 96, 121, 24),
         ("dryrun-map-24x96-d121", 24, 96, 121, 25),
         ("ragged-1000x777-d121", 1000, 777, 121, 2),
@@ -830,6 +889,7 @@ def check_k2():
                             ("512x288-d128", 512, 288, 128),
                             ("128x128-d121", 128, 128, 121),
                             ("64x128-d121", 64, 128, 121),
+                            ("64x288-d128", 64, 288, 128),
                             ("96x96-d121", 96, 96, 121),
                             ("24x96-d121", 24, 96, 121),
                             ("4096x4096-d128", 4096, 4096, 128),
@@ -1094,11 +1154,11 @@ def sift_features(images):
     return extract_features_sift(*images)
 
 
-def match_keypoints(cpu, gpu):
+def keypoint_matches(cpu, gpu):
     """The CPU run's valid keypoints found among the card's at uv within
-    1e-3 px, per frame: (share found, largest uv gap, descriptor error on
-    matches whose uv agree within 1e-5 px, and on every match)."""
-    found, total, gap, err_same, err_all = 0, 0, 0.0, 0.0, 0.0
+    1e-3 px, over every frame: (share found, each match's uv gap, each
+    match's largest descriptor error)."""
+    found, total, gaps, errs = 0, 0, [], []
     for f in range(cpu.uv.shape[0]):
         cv, gv = cpu.valid[f], gpu.valid[f].cpu()
         cuv, guv = cpu.uv[f][cv], gpu.uv[f].cpu()[gv]
@@ -1107,15 +1167,21 @@ def match_keypoints(cpu, gpu):
         hit = dmin < 1e-3
         found += int(hit.sum())
         total += int(cv.sum())
-        if bool(hit.any()):
-            gap = max(gap, float(dmin[hit].max()))
-            e = (cpu.desc[f][cv][hit] - gpu.desc[f].cpu()[gv][j[hit]]).abs(
-                ).amax(-1)
-            err_all = max(err_all, float(e.max()))
-            same = dmin[hit] < 1e-5
-            if bool(same.any()):
-                err_same = max(err_same, float(e[same].max()))
-    return found / max(total, 1), gap, err_same, err_all
+        gaps.append(dmin[hit])
+        errs.append((cpu.desc[f][cv][hit]
+                     - gpu.desc[f].cpu()[gv][j[hit]]).abs().amax(-1))
+    return found / max(total, 1), torch.cat(gaps), torch.cat(errs)
+
+
+def match_keypoints(cpu, gpu):
+    """keypoint_matches as (share found, largest uv gap, descriptor error
+    on matches whose uv agree within 1e-5 px, and on every match)."""
+    share, gaps, errs = keypoint_matches(cpu, gpu)
+    if not len(gaps):
+        return share, 0.0, 0.0, 0.0
+    same = gaps < 1e-5
+    err_same = float(errs[same].max()) if bool(same.any()) else 0.0
+    return share, float(gaps.max()), err_same, float(errs.max())
 
 
 def sift_parity():
@@ -2376,6 +2442,272 @@ def batch_phase():
     return errs, times, launches
 
 
+@contextlib.contextmanager
+def sift_branch(value: str | None):
+    """PRE3_SIFT_FAST_MATH set to ``value`` (None: unset) inside, put
+    back as it was found on the way out."""
+    prior = os.environ.get("PRE3_SIFT_FAST_MATH")
+    try:
+        if value is None:
+            os.environ.pop("PRE3_SIFT_FAST_MATH", None)
+        else:
+            os.environ["PRE3_SIFT_FAST_MATH"] = value
+        yield
+    finally:
+        if prior is None:
+            os.environ.pop("PRE3_SIFT_FAST_MATH", None)
+        else:
+            os.environ["PRE3_SIFT_FAST_MATH"] = prior
+
+
+def fast_parity(images):
+    """23a: FAST_FRAMES corridor frames from each of FAST_WINDOWS through
+    extract_features_sift with the fast branch on the card and on the
+    CPU (keypoints as sets, descriptors within FAST_DESC_TOL, median
+    within FAST_DESC_MEDIAN), then the card's fast branch against its
+    exact one. Every window is read before any is judged."""
+    rows, failed = [], []
+    for start in FAST_WINDOWS:
+        host = [a[start:start + FAST_FRAMES] for a in images]
+        with sift_branch("1"):
+            gpu = sift_features([torch.as_tensor(a, device="cuda")
+                                 for a in host])
+            cpu = sift_features([torch.as_tensor(a) for a in host])
+        with sift_branch("0"):
+            exact = sift_features([torch.as_tensor(a, device="cuda")
+                                   for a in host])
+        share, gaps, errs = keypoint_matches(cpu, gpu)
+        top, med = float(errs.max()), float(errs.median())
+        rows.append(top)
+        phase("fast-sift", f"23a frames {start}–{start + FAST_FRAMES - 1}, "
+              f"fast branch: valid keypoints CPU {int(cpu.valid.sum())}, "
+              f"card {int(gpu.valid.sum())}; {share:.2%} of the CPU's found "
+              f"on the card (largest uv gap {float(gaps.max()):.2e} px); "
+              f"descriptor error per match max {top:.2e} (tolerance "
+              f"{FAST_DESC_TOL}), median {med:.2e} (tolerance "
+              f"{FAST_DESC_MEDIAN}), {float((errs > 1e-5).float().mean()):.2%}"
+              " above 1e-5")
+        if share < SIFT_MIN_MATCHED or top > FAST_DESC_TOL or (
+            med > FAST_DESC_MEDIAN
+        ):
+            failed.append(f"frames {start}+: card and CPU disagree")
+        counts, overlaps, cosines = [], [], []
+        for f in range(FAST_FRAMES):
+            uv_e = exact.uv[f][exact.valid[f]].cpu()
+            uv_f = gpu.uv[f][gpu.valid[f]].cpu()
+            counts.append(len(uv_f) / max(len(uv_e), 1))
+            d = torch.linalg.vector_norm(uv_e[:, None] - uv_f[None], dim=-1)
+            dmin, j = d.min(dim=1)
+            overlaps.append(float((dmin < 1.0).float().mean()))
+            pairs = dmin < 0.25
+            de = exact.desc[f][exact.valid[f]].cpu()[pairs]
+            df = gpu.desc[f][gpu.valid[f]].cpu()[j[pairs]]
+            cos = (de * df).sum(-1) / torch.clamp(
+                torch.linalg.vector_norm(de, dim=-1)
+                * torch.linalg.vector_norm(df, dim=-1), min=1e-9)
+            cosines.append((int(pairs.sum()), float(cos.median())))
+        phase("fast-sift", f"23a frames {start}+, card fast vs exact per "
+              f"frame: keypoint count ratio min {min(counts):.3f}, overlap "
+              f"within 1 px min {min(overlaps):.3f}, co-located pairs and "
+              f"median cosine min {min(n for n, _ in cosines)}, "
+              f"{min(c for _, c in cosines):.7f}")
+        if min(counts) < 0.8 or min(overlaps) <= 0.8 or any(
+            n < 10 or c <= 0.99 for n, c in cosines
+        ):
+            failed.append(f"frames {start}+: fast too far from exact")
+    phase("fast-sift", f"23a card vs CPU, largest descriptor error per "
+          f"window {['%.2e' % e for e in rows]} (tolerance {FAST_DESC_TOL})")
+    if failed:
+        raise AssertionError(f"23a: {failed}")
+
+
+def fast_timing(im):
+    """23b: device time of extract_features_sift over one FAST_CHUNK-frame
+    chunk per branch, from the profiler as profile_slice reads it, in
+    turns exact, fast, fast, exact after a warm-up of each; within the
+    same profiled run, the band filters' device time (every kernel that a
+    _tri_sepconv call launches, each call inside a profiler range) and
+    the bf16 GEMMs. Returns {branch: [ms per frame, ...]}."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+
+    from pre3_tpu_torch.frontend import sift
+    from pre3_tpu_torch.utils.profile_slice import LAUNCHES
+
+    inner = sift._tri_sepconv
+
+    def ranged(*args, **kwargs):
+        with record_function(BAND_RANGE):
+            return inner(*args, **kwargs)
+
+    chunk = [x[:FAST_CHUNK] for x in im]
+    # each level's two products, [H, H] × [H, W·8] and [.., W] × [W, W]
+    n, h, w = chunk[0].shape
+    flops = BAND_LEVELS * sum(
+        2.0 * n * sift.NBO * ho * wo * (ho + wo)
+        for ho, wo in ((-(-h // 2**o), -(-w // 2**o))
+                       for o in range(BAND_OCTAVES)))
+    for value in ("0", "1"):
+        with sift_branch(value):
+            sift_features(chunk)
+    torch.cuda.synchronize()
+    ms, gemms = {"exact": [], "fast": []}, {"exact": [], "fast": []}
+    band = {"exact": [], "fast": []}
+    for name in ("exact", "fast", "fast", "exact"):
+        sift._tri_sepconv = ranged
+        try:
+            with sift_branch("1" if name == "fast" else "0"), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            ) as prof:
+                sift_features(chunk)
+                torch.cuda.synchronize()
+        finally:
+            sift._tri_sepconv = inner
+        avgs = prof.key_averages()
+        kernels = [a for a in avgs if a.device_type == DeviceType.CUDA
+                   and a.key != BAND_RANGE]
+        launches = sum(a.count for a in avgs if a.key in LAUNCHES)
+        busy_us = sum(a.self_device_time_total for a in kernels)
+        band_us = sum(e.device_time_total for e in prof.events()
+                      if e.name == BAND_RANGE
+                      and e.device_type == DeviceType.CPU)
+        bf16 = {a.key: (a.count, a.self_device_time_total) for a in kernels
+                if "bf16" in a.key or "nvjet_t" in a.key}
+        ms[name].append(busy_us / 1e3 / FAST_CHUNK)
+        band[name].append(band_us / 1e3)
+        gemms[name].append(sum(n for n, _ in bf16.values()))
+        phase("fast-sift", f"23b {name}: device busy {ms[name][-1]:.4f} ms "
+              f"per frame over {FAST_CHUNK} frames, {launches} launches; "
+              f"band filters {band[name][-1]:.4f} ms per chunk "
+              f"({band_us / busy_us:.1%} of the device time); bf16 GEMM "
+              f"kernels {gemms[name][-1]}, "
+              f"{sum(t for _, t in bf16.values()) / 1e3:.4f} ms "
+              + (str(sorted((k[:40], n) for k, (n, _) in bf16.items()))
+                 if bf16 else ""))
+    phase("fast-sift", f"23b device ms per frame: exact {ms['exact']}, fast "
+          f"{ms['fast']}; fast / exact "
+          f"{sum(ms['fast']) / sum(ms['exact']):.3f}; band filters ms per "
+          f"chunk: exact {band['exact']}, fast {band['fast']}; bound "
+          f"{flops / H100_F32_FLOPS * 1e3:.4f} (f32) and "
+          f"{flops / H100_BF16_FLOPS * 1e3:.4f} ms (bf16), "
+          f"{flops / 1e9:.1f} GFLOP, operations")
+    if any(gemms["exact"]) or any(g < FAST_GEMMS for g in gemms["fast"]):
+        raise AssertionError(f"bf16 GEMMs per chunk: {gemms} (expected 0 "
+                             f"exact, at least {FAST_GEMMS} fast)")
+    if not all(0.0 < b < m * FAST_CHUNK for k in ms
+               for b, m in zip(band[k], ms[k])):
+        raise AssertionError(f"band filters' device time {band} outside "
+                             f"(0, the frontend's {ms})")
+    return ms
+
+
+def fast_slam():
+    """23c: corridor 0 of phase 22's recipe, 32 frames, through the fast
+    frontend and run_slam at K=SIFT_LANDMARKS: K1 and K2 launches as the
+    exact branch's, ATE in the JAX fast branch's band. Returns (K1, K2)."""
+    from pre3_tpu_torch.ekf.slam import run_slam
+    from pre3_tpu_torch.eval.trajectory import ate_rmse
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils import measure_batch
+
+    host, gts = measure_batch.render_batch(BATCH_FRAMES, 1)
+    steps = BATCH_FRAMES - 1
+    with sift_branch("1"):
+        feats = sift_features([torch.as_tensor(x[0], device="cuda")
+                               for x in host])
+    reset_launches()
+    out = run_slam(sr4000_camera(), feats, measure_batch.CFG,
+                   n_landmarks=SIFT_LANDMARKS,
+                   generator=torch.Generator("cuda").manual_seed(SIFT_SEED))
+    k1, k2 = read_launches()
+    t = out.t.cpu().numpy()
+    ate = ate_rmse(t, gts[0], align=False)
+    half = BATCH_ATE_REL * FAST_ATE_MEAN
+    phase("fast-sift", f"23c corridor 0, {BATCH_FRAMES} frames, fast "
+          f"branch, K={SIFT_LANDMARKS}: K1 {k1}, K2 {k2} launches, ATE "
+          f"{ate:.4f} m (band {FAST_ATE_MEAN} ± {half:.4f})")
+    if (k1, k2) != (steps, 2 * steps):
+        raise AssertionError(f"fast run_slam: K1 {k1}, K2 {k2} launches "
+                             f"over {steps} steps")
+    if not np.isfinite(t).all() or abs(ate - FAST_ATE_MEAN) > half:
+        raise AssertionError(f"fast run_slam: ATE {ate:.4f} m out of band")
+    return k1, k2
+
+
+def walkthrough(work: Path):
+    """23d: examples/run_synthetic_slam.main on the card at WALK_FRAMES
+    frames, the branch the caller set: every stage runs, the BA cost
+    falls, the PLY holds one vertex per landmark of the BA problem, the
+    ATEs under WALK_ATE_MAX. Returns each stage's (K1, K2) launches."""
+    from pre3_tpu_torch.examples import run_synthetic_slam as ex
+
+    stages = {"extract_features_sift": "frontend", "run_sequence": "vo",
+              "run_slam": "slam", "select_keyframes": "keyframes",
+              "ba_problem_from_slam": "ba-problem",
+              "bundle_adjust": "ba", "apply_ba_corrections": "smoothing"}
+    originals = {name: getattr(ex, name) for name in stages}
+    launches, landmarks = {}, []
+
+    def counted(name):
+        def run(*args, **kwargs):
+            reset_launches()
+            out = originals[name](*args, **kwargs)
+            launches[stages[name]] = read_launches()
+            if name == "ba_problem_from_slam":
+                landmarks.append(out.points.shape[0])
+            return out
+        return run
+
+    for name in stages:
+        setattr(ex, name, counted(name))
+    try:
+        res = ex.main(str(work), n_frames=WALK_FRAMES, device="cuda")
+    finally:
+        for name, fn in originals.items():
+            setattr(ex, name, fn)
+    header = (work / "ba_map.ply").read_text().split("end_header")[0]
+    vertices = int(header.split("element vertex")[1].split()[0])
+    cost = res["cost"]
+    steps = WALK_FRAMES - 1
+    phase("fast-sift", f"23d walkthrough, {WALK_FRAMES} frames: ATE VO "
+          f"{res['ate_vo']:.4f}, SLAM {res['ate_slam']:.4f} (RPE "
+          f"{res['rpe_slam']:.4f}), smoothed {res['ate_smoothed']:.4f} m; "
+          f"keyframes {res['keyframes']}, BA cost {cost[0]:.4f} -> "
+          f"{cost[-1]:.4f}, PLY vertices {vertices} for {landmarks} BA "
+          f"landmarks; files {[Path(f).name for f in res['files']]}; K1/K2 "
+          f"per stage {launches}; seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()))
+    want = {"vo": (steps, steps), "slam": (steps, 2 * steps)}
+    if set(launches) != set(stages.values()) or any(
+        launches[k] != want.get(k, (0, 0)) for k in launches
+    ):
+        raise AssertionError(f"walkthrough: launches per stage {launches}")
+    if not cost[-1] < cost[0] or landmarks != [vertices] or vertices < 1:
+        raise AssertionError("walkthrough: BA cost or map export wrong")
+    if not all(res[k] < WALK_ATE_MAX for k in ("ate_vo", "ate_slam",
+                                                 "ate_smoothed")):
+        raise AssertionError("walkthrough: ATE above the sanity bound")
+    return launches
+
+
+def fast_sift_phase(images, im, work: Path):
+    """Phase 23: 23a–23c with the fast branch (each switch inside
+    sift_branch, which puts PRE3_SIFT_FAST_MATH back as it was found,
+    whatever fails), then 23d, the walkthrough, with the variable as the
+    caller left it (unset: the exact branch)."""
+    t0 = time.perf_counter()
+    fast_parity(images)
+    t1 = time.perf_counter()
+    ms = fast_timing(im)
+    t2 = time.perf_counter()
+    slam_launches = fast_slam()
+    t3 = time.perf_counter()
+    walk = walkthrough(work)
+    phase("fast-sift", f"23a {t1 - t0:.1f} s, 23b {t2 - t1:.1f} s, 23c "
+          f"{t3 - t2:.1f} s, 23d {time.perf_counter() - t3:.1f} s")
+    return ms, slam_launches, walk
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -2455,6 +2787,11 @@ def main() -> None:
 
     # ---- 22. the multi-sequence path: run_slam_batched ----
     b_err, b_times, (b_k1, b_k2) = timed("batch", batch_phase)
+
+    # ---- 23. SIFT's fast-math branch; examples/run_synthetic_slam.py ----
+    with tempfile.TemporaryDirectory(prefix="pre3_smoke_") as tmp:
+        _, (fast_k1, fast_k2), walk = timed(
+            "fast-sift-walkthrough", fast_sift_phase, images, im, Path(tmp))
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -2476,7 +2813,9 @@ def main() -> None:
                    "loop_mining": mine_k1, "dat": dat_k1,
                    "offline_kf": kf_k1, "offline_kf_warm": warm[0],
                    "multi_device": {"nccl_1_rank": md_a[0],
-                                    "gloo_2_ranks": [k[0] for k in md_b]}},
+                                    "gloo_2_ranks": [k[0] for k in md_b]},
+                   "fast_sift_slam": fast_k1,
+                   "walkthrough": {k: v[0] for k, v in walk.items()}},
          "loop_mining_time": {"shape": "B=1024, N=288",
                               **k1_times["1024x288"]},
          "dat_time": {"shape": "B=512, N=128", **k1_times["512x128"]},
@@ -2496,9 +2835,14 @@ def main() -> None:
                    "dat": dat_k2, "offline_kf": kf_k2,
                    "offline_kf_warm": warm[1],
                    "multi_device": {"nccl_1_rank": md_a[1],
-                                    "gloo_2_ranks": [k[1] for k in md_b]}},
+                                    "gloo_2_ranks": [k[1] for k in md_b]},
+                   "fast_sift_slam": fast_k2,
+                   "walkthrough": {k: v[1] for k, v in walk.items()}},
          "tracks_time": {"shape": "N1=512, N2=288, D=128",
                          **k2_times["512x288-d128"]},
+         "k64_map_time": {"shape": "N1=64, N2=288, D=128 (OnlineSlam, "
+                                   "the walkthrough's run_slam)",
+                          **k2_times["64x288-d128"]},
          "dat_time": {"shape": "N1=N2=128, D=121",
                       **k2_times["128x128-d121"]},
          "dat_map_time": {"shape": "N1=64, N2=128, D=121",

@@ -1,22 +1,27 @@
 """SIFT detector + descriptor as dense tensor ops, batched over frames.
 
-Port of the exact branch of ``pre3_tpu/frontend/sift.py`` (the TPU-only
-fast-math branch, ``approx_max_k`` top-k and bf16 matmuls, is not ported:
-the reference's CPU path is exact, and that is what the port is held to).
+Port of ``pre3_tpu/frontend/sift.py``, both of its branches. The
+reference picks one with ``PRE3_SIFT_FAST_MATH`` (``_fast_math``): the
+exact branch (f32 throughout) and the fast-math branch, which rounds the
+descriptor's band-filter operands and its interpolation taps to bf16 and
+accumulates in f32. The port reads the same variable when ``extract_sift``
+is called; unset, it runs the exact branch on every device (the
+reference runs the fast one unset only on a TPU).
 
   detection    26-neighbour extrema as rolled-stack comparisons over the
                whole DoG stack (with the reference's wrap-around), closed-
                form 3×3 quadratic refinement + edge test, top-K per octave
                by |DoG| (stable, so the zero slots keep the reference's
-               index order)
+               index order; both branches, see ``_detect_octave``)
   orientation  36-bin histograms by one-hot contraction over a fixed
                17×17 window, up to two peaks (upright=False only)
   descriptor   upright: dense orientation binning, a banded triangle
-               filter per level (two matmuls) and a 4-tap bilinear gather
-               at each keypoint's 4×4 bin centres — the reference's one-
-               hot contraction gives the same four products per output;
-               rotated (upright=False): trilinear binning of a 16×16
-               sample grid
+               filter per level (two matmuls; bf16 operands on the fast
+               branch, tensor-core GEMMs on CUDA) and a 4-tap bilinear
+               gather at each keypoint's 4×4 bin centres — the reference's
+               one-hot contraction gives the same four products per
+               output; rotated (upright=False): trilinear binning of a
+               16×16 sample grid
 
 Every function takes a leading frame axis (any leading axes where noted).
 ``extract_sift`` runs the frames in fixed chunks to bound the memory of
@@ -26,6 +31,7 @@ the dense stacks.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -158,6 +164,10 @@ def _detect_octave(
         torch.abs(refined) > peak_thresh)
     score = torch.where(ok, torch.abs(refined), 0.0)
 
+    # Both branches: the reference's fast branch calls approx_max_k
+    # (pre3_tpu/frontend/sift.py:159-166), whose lowering is approximate
+    # only on a TPU; on the CPU and GPU it returns top_k's indices, ties
+    # included, and that is what the port computes.
     vals, idx = stable_topk(score.flatten(-3), max_keypoints)
     lvl = idx // (h * w)
     rem = idx % (h * w)
@@ -274,6 +284,34 @@ def _orientations(
 # ---------------------------------------------------------------------------
 
 
+def _fast_math() -> bool:
+    """The reference's branch switch (pre3_tpu/frontend/sift.py:292-305):
+    ``PRE3_SIFT_FAST_MATH`` "1" runs the fast-math branch, "0" the exact
+    one. Unset, the reference runs the fast branch only on a TPU; the
+    port has none, so unset is exact on the CPU and on CUDA alike.
+    ``extract_sift`` reads it once per call."""
+    return os.environ.get("PRE3_SIFT_FAST_MATH") == "1"
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (round to nearest even) and held in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] or [B, K, N] of bf16 operands, accumulated and
+    returned in f32 (the reference's ``preferred_element_type``). On
+    CUDA a bf16 tensor-core GEMM with an f32 output; elsewhere the f32
+    product of the upcast operands (each bf16 × bf16 product is exact in
+    f32, so only the summation order differs)."""
+    if not b.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    if b.dim() == 3:
+        return torch.bmm(a.expand(b.shape[0], *a.shape), b,
+                         out_dtype=torch.float32)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 def _band_matrix(n: int, delta: float) -> np.ndarray:
     """[n, n] banded triangle-filter matrix: B[p, q] = hat((p−q)/Δ)."""
     idx = np.arange(n)
@@ -282,15 +320,25 @@ def _band_matrix(n: int, delta: float) -> np.ndarray:
     ).astype(np.float32)
 
 
-def _tri_sepconv(x: torch.Tensor, delta: float) -> torch.Tensor:
+def _tri_sepconv(x: torch.Tensor, delta: float,
+                 fast: bool = False) -> torch.Tensor:
     """Separable triangle (hat) filter of [..., H, W, C]:
     out(p) = Σ_q max(0, 1−|pᵣ−qᵣ|/Δ)·max(0, 1−|p_c−q_c|/Δ)·x(q),
-    as two banded-matrix products."""
+    as two banded-matrix products. ``fast``: the reference's fast-math
+    branch (pre3_tpu/frontend/sift.py:330-340): bf16 band matrices and
+    input, f32 accumulation, the first product rounded to bf16."""
     h, w, c = x.shape[-3:]
     br = to_device(torch.from_numpy(_band_matrix(h, delta)), x.device)
     bc = to_device(torch.from_numpy(_band_matrix(w, delta)), x.device)
-    y = torch.matmul(br, x.reshape(*x.shape[:-3], h, w * c))
-    return torch.matmul(bc, y.reshape(x.shape))  # [..., H, W, C]
+    if not fast:
+        y = torch.matmul(br, x.reshape(*x.shape[:-3], h, w * c))
+        return torch.matmul(bc, y.reshape(x.shape))  # [..., H, W, C]
+    br, bc, x = (a.to(torch.bfloat16) for a in (br, bc, x))
+    y = _matmul_bf16(br, x.reshape(-1, h, w * c)).to(torch.bfloat16)
+    # the column filter on the rows of yᵀ: one [N·H·C, W] × [W, W] GEMM
+    yt = y.reshape(-1, w, c).mT.reshape(-1, w)
+    out = _matmul_bf16(yt, bc.mT).reshape(-1, h, c, w).mT
+    return out.reshape(x.shape)  # [..., H, W, C] f32
 
 
 def _orientation_hat(ang: torch.Tensor) -> torch.Tensor:
@@ -315,19 +363,21 @@ def _normalize_desc(desc: torch.Tensor) -> torch.Tensor:
 def _descriptors_dense(
     mag: torch.Tensor, ang: torch.Tensor, level: torch.Tensor,
     r_f: torch.Tensor, c_f: torch.Tensor, sigma: torch.Tensor,
-    s_levels: int, sigma0: float,
+    s_levels: int, sigma0: float, fast: bool = False,
 ) -> torch.Tensor:
     """Upright 128-D descriptors by dense pre-binning: orientation hat
     binning of every pixel, a triangle filter per level at the level's
     nominal Δ_l = MAGNIF·σ_l, then per keypoint a bilinear sample at its
     4×4 bin centres (Gaussian window at the centres), normalize/clamp/
-    renormalize. mag/ang [..., L, H, W] → [..., K, 128]."""
+    renormalize. mag/ang [..., L, H, W] → [..., K, 128]. ``fast``: the
+    reference's fast-math branch (bf16 band filters; bf16 binned stack
+    and taps, pre3_tpu/frontend/sift.py:411-418)."""
     n_lev, h, w = mag.shape[-3:]
     k_scale = 2.0 ** (1.0 / s_levels)
     m8 = mag[..., None] * _orientation_hat(ang)  # [..., L, H, W, 8]
     binned = torch.stack([
         _tri_sepconv(m8[..., lv, :, :, :],
-                     MAGNIF * sigma0 * k_scale ** (lv - 1.0))
+                     MAGNIF * sigma0 * k_scale ** (lv - 1.0), fast)
         for lv in range(n_lev)
     ], dim=-4)  # [..., L, H, W, 8]
 
@@ -343,15 +393,23 @@ def _descriptors_dense(
     v0 = torch.floor(v)
     du = (u - u0)[..., None]
     dv = (v - v0)[..., None]
+    taps = [1.0 - du, du, 1.0 - dv, dv]
     flat = binned.flatten(-4, -2)  # [..., L·H·W, 8]
+    if fast:
+        # the reference's contraction of bf16 one-hot taps with a bf16
+        # source, f32 accumulation: each tap weight and the stack rounded
+        # once; a bf16 × bf16 product is exact in f32
+        taps = [_bf16(t) for t in taps]
+        flat = flat.to(torch.bfloat16)
     corners = _corner_index(level[..., None], u0.long(), v0.long(), h, w)
     at = [torch.gather(flat, -2, ix.flatten(-2)[..., None].expand(
         *ix.shape[:-2], ix.shape[-2] * ix.shape[-1], NBO)).reshape(
-            *ix.shape, NBO) for ix in corners]  # [..., K, 16, 8] each
+            *ix.shape, NBO).float() for ix in corners]  # [..., K, 16, 8]
     # the reference's two one-hot contractions: column taps, then row taps
-    row0 = at[0] * (1.0 - du) + at[1] * du
-    row1 = at[2] * (1.0 - du) + at[3] * du
-    samp = row0 * (1.0 - dv) + row1 * dv  # [..., K, 16, 8]
+    u0w, u1w, v0w, v1w = taps
+    row0 = at[0] * u0w + at[1] * u1w
+    row1 = at[2] * u0w + at[3] * u1w
+    samp = row0 * v0w + row1 * v1w  # [..., K, 16, 8]
 
     win = torch.exp(-torch.sum(gxy * gxy, dim=-1)
                     / (2.0 * (NBP / 2.0) ** 2))  # [16]
@@ -404,7 +462,7 @@ def _descriptors(
 
 
 def _extract_chunk(img, n_octaves, s_levels, keypoints_per_octave,
-                   peak_thresh, upright) -> SiftFeatures:
+                   peak_thresh, upright, fast) -> SiftFeatures:
     sigma0 = 1.6 * 2.0 ** (1.0 / s_levels)
     octaves = build_pyramid(img, n_octaves=n_octaves, s_levels=s_levels,
                             sigma0=sigma0)
@@ -416,7 +474,7 @@ def _extract_chunk(img, n_octaves, s_levels, keypoints_per_octave,
         if upright:
             theta = torch.zeros_like(sigma)
             desc = _descriptors_dense(mag, ang, lvl, r_f, c_f, sigma,
-                                      s_levels, sigma0)
+                                      s_levels, sigma0, fast)
         else:
             # one keypoint per histogram peak (up to 2): the second peak
             # occupies a second [K] block, masked where it does not qualify
@@ -447,11 +505,13 @@ def extract_sift(
     leading frame axis: K = n_octaves·keypoints_per_octave per frame
     (doubled with upright=False: a second masked block for the second
     orientation peaks). upright=True assigns θ = 0, as the reference's
-    default for RGB-D SLAM with small inter-frame roll."""
+    default for RGB-D SLAM with small inter-frame roll. The branch follows
+    ``PRE3_SIFT_FAST_MATH`` at this call (``_fast_math``)."""
     if img.dim() != 3:
         raise ValueError(f"extract_sift takes [F, H, W]; got {tuple(img.shape)}")
+    fast = _fast_math()
     chunks = [_extract_chunk(part, n_octaves, s_levels, keypoints_per_octave,
-                             peak_thresh, upright)
+                             peak_thresh, upright, fast)
               for part in torch.split(img, FRAME_CHUNK)]
     if len(chunks) == 1:
         return chunks[0]

@@ -101,8 +101,8 @@ def report(name: str, fn, n: int, reps: int):
 K1_SHAPES = ((512, 288), (512, 256), (1024, 256), (1024, 288), (512, 128),
              (2048, 288), (512, 96), (64, 64))
 K2_SHAPES = ((288, 288, 128), (256, 288, 128), (512, 288, 128),
-             (256, 256, 121), (128, 128, 121), (64, 128, 121), (96, 96, 121),
-             (24, 96, 121))
+             (64, 288, 128), (256, 256, 121), (128, 128, 121), (64, 128, 121),
+             (96, 96, 121), (24, 96, 121))
 
 
 def wrappers() -> None:

@@ -38,11 +38,15 @@ computes it. ``--config`` picks the slice:
         0.015·F + 1.8, scene_seed=b, traj_seed=100 + b), the sift run on
         each; the ATE per sequence and over all of them.
 
+The SIFT frontend runs its exact branch unless ``--fast-math`` is given,
+which sets ``PRE3_SIFT_FAST_MATH=1`` (bf16 band filters and descriptor
+taps, ``approx_max_k``) before anything is traced.
+
 Run it from the root of a checkout:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python3 tools/jax_sift_ate_band.py \\
         [--config sift|ncc|ba|loop|dat|batch] [--keys 7] \\
-        [--frames 32 --sequences 16]
+        [--frames 32 --sequences 16] [--fast-math]
 
 (a few minutes per configuration on a CPU). The SIFT frontend runs one
 frame per call (one compiled program), so the peak memory stays that of
@@ -56,7 +60,6 @@ import os
 import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["PRE3_SIFT_FAST_MATH"] = "0"  # the exact branch
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -240,7 +243,11 @@ def main() -> None:
     ap.add_argument("--keys", type=int, default=7)
     ap.add_argument("--frames", type=int, default=32)  # batch only
     ap.add_argument("--sequences", type=int, default=16)  # batch only
+    ap.add_argument("--fast-math", action="store_true",
+                    help="the SIFT frontend's fast-math branch")
     args = ap.parse_args()
+    # read by the SIFT frontend when it is traced
+    os.environ["PRE3_SIFT_FAST_MATH"] = "1" if args.fast_math else "0"
     jax.config.update("jax_platforms", "cpu")
     if args.config == "dat":
         _dat_band(args.keys)
