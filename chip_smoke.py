@@ -132,7 +132,31 @@ device, and imports nothing of JAX. Phases:
                   22: K1 and K2 launches, ATE in the JAX fast band; 23d
                   examples/run_synthetic_slam.main at 32 frames: every
                   stage, K1/K2 per stage, BA cost, the PLY, three ATEs.
-                  PRE3_SIFT_FAST_MATH is put back as it was found.
+                  PRE3_SIFT_FAST_MATH is put back as it was found;
+ 24. graphs     — the step programs (utils/graphs.py), each against the
+                  eager loop of its step on the card over 32 corridor
+                  frames, bit for bit: run_slam for config #3, FAST EKF,
+                  config #2, IEKF and the attitude update every 4 steps
+                  (tilted floor), VO run_sequence, run_slam_batched at
+                  S=4, OnlineSlam.process against its fused_fn, then
+                  process_chunk and a resumed run. Per program: K1/K2
+                  on the kernels' device counters; the driver's steps
+                  profiled, with K1 and K2 found by name as often as the
+                  counters ran them in that window, the host-issued
+                  launches (graph launches, fills, copies) per step
+                  within their limits and the device busy time and idle
+                  share of that window; host ms per step graphed and
+                  eager; capture seconds and pool; replays under sync
+                  checks. Then the graphed run_slam's peak memory at 32
+                  and 256 frames, the eager loop's at 16 and 48, what
+                  one eager step's kept outputs hold, and the SIFT
+                  frontend's peak at 32 and 256 frames.
+
+The drivers replay one captured CUDA graph per step (K1 and K2 inside);
+a program's first call captures it, waiting for the device once, and
+the phases that time a driver run it once untimed first. K1 and K2 count
+their own runs on the device (a replay counts; a program's warm-up,
+set-up before its capture, does not).
 
 Each phase prints its seconds (``[time]`` lines).
 
@@ -193,10 +217,9 @@ EKF_ATE_CENTER, EKF_ATE_HALF_WIDTH = 0.153, 0.05
 # may differ: a near-tie can flip one match in one step.
 EKF_PARITY_TOL = 1e-3
 EKF_PARITY_STEPS = 2
-# The FAST EKF slice runs once, its sync-checked run timed (the SIFT
-# slice is the headline, and the smoke's time goes to configs #2 and #4);
-# the NCC slice keeps 1 warm-up + 1 timed run.
-EKF_TIMED_RUNS, NCC_TIMED_RUNS = 0, 1
+# The FAST and NCC slices each run once under sync checks (the first run
+# captures the step program) and once timed.
+EKF_TIMED_RUNS, NCC_TIMED_RUNS = 1, 1
 
 # The flagship (bench.py CFG): SIFT, 3 octaves × 96 = 288 keypoints of
 # 128 dims per frame, run_slam at K=256 with the default ratio 1.5.
@@ -1209,15 +1232,22 @@ def sift_parity():
 def sift_slice(im, gt):
     """Phase 10, the headline: the 256-frame corridor through
     extract_features_sift and run_slam with bench.py's CFG, once, timed
-    and under sync checks (K1, K2 and the SIFT frontend are warm from
-    the earlier phases). The frontend and run_slam are timed apart: a
-    synchronize between them, outside the checked calls."""
+    and under sync checks, after one untimed run that captures run_slam's
+    step program (K1, K2 and the SIFT frontend are warm from the earlier
+    phases). The frontend and run_slam are timed apart: a synchronize
+    between them, outside the checked calls."""
     from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
     from pre3_tpu_torch.eval.trajectory import ate_rmse
     from pre3_tpu_torch.geometry.camera import sr4000_camera
     from pre3_tpu_torch.ops.matching import match_descriptors_k2
     from pre3_tpu_torch.ops.ransac_score import score_hypotheses
 
+    # the step program's capture: an untimed run at the same shapes
+    warm = sift_features(im)
+    run_slam(sr4000_camera(), warm, SlamConfig(**SIFT_CFG),
+             n_landmarks=SIFT_LANDMARKS,
+             generator=torch.Generator(device="cuda").manual_seed(0))
+    del warm
     gen = torch.Generator(device="cuda").manual_seed(SIFT_SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1453,7 +1483,7 @@ def ba_phase(out, gt):
     slam_ate = ate_rmse(out.t.cpu().numpy(), gt, align=False)
     ate = ate_rmse(sm_t.cpu().numpy(), gt, align=False)
     cam = sr4000_camera()
-    launches, busy_us, _ = _profiled(
+    launches, busy_us, window_s, _ = _profiled(
         lambda: bundle_adjust(cam, prob, iters=BA_ITERS))
     per_it = ms[1] / BA_ITERS
     busy_it = busy_us / 1e3 / BA_ITERS
@@ -1466,7 +1496,8 @@ def ba_phase(out, gt):
           f"{ate:.4f} m")
     phase("ba", f"per LM iteration: {launches / BA_ITERS:.1f} launches, "
           f"device busy {busy_it:.3f} ms, host {per_it:.3f} ms unprofiled, "
-          f"idle share {1.0 - busy_it / per_it:.4f}")
+          f"idle share {1.0 - busy_us / 1e6 / window_s:.4f} (of the "
+          f"profiled run)")
     if not np.isfinite(cost).all() or cost[-1] >= cost[0]:
         raise AssertionError(f"BA: cost {cost[0]} -> {cost[-1]}")
     if abs(ate - BA_ATE_CENTER) > BA_ATE_HALF_WIDTH:
@@ -2403,7 +2434,7 @@ def batch_sweep(host, gts):
     for n_seq in BATCH_SIZES:
         images = [torch.as_tensor(x[:n_seq], device="cuda") for x in host]
         res = measure_batch.measure(images, gts[:n_seq], SIFT_LANDMARKS,
-                                    reps=1, sync_check=True, warmup=False)
+                                    reps=1, sync_check=True, warmup=True)
         phase("batch", "22c " + measure_batch.describe(res))
         steps = BATCH_FRAMES - 1
         if (res["k1"], res["k2"]) != (steps, 2 * steps):
@@ -2708,6 +2739,605 @@ def fast_sift_phase(images, im, work: Path):
     return ms, slam_launches, walk
 
 
+# ---------------------------------------------------------------------------
+# Phase 24 (graphs): every driver of the main path replays one captured
+# CUDA graph per step (utils/graphs.py); each is held against the eager
+# loop of the same step on the card.
+# ---------------------------------------------------------------------------
+
+GRAPH_FRAMES = 32
+GRAPH_SEED = 11
+GRAPH_BATCH_SEQS = 4
+GRAPH_ONLINE_LANDMARKS = 64
+GRAPH_CHUNK = 8
+GRAPH_RESUME_AT = 16  # snapshot after this many steps
+GRAPH_PROFILED_FRAMES = 8  # OnlineSlam.process calls in its profiled window
+# Host-issued launches (kernels, graph launches, copies, memsets) per
+# step, counted by the profiler over a driver's steps: run_slam and the
+# VO pair at most GRAPH_LAUNCHES_RUN_SLAM, the batched step that plus one
+# per sequence, OnlineSlam's frame GRAPH_LAUNCHES_FRAME.
+GRAPH_LAUNCHES_RUN_SLAM = 10
+GRAPH_LAUNCHES_FRAME = 20
+# The graphed run_slam's peak memory at these frame counts (K=256): its
+# growth per frame above the first stays under GRAPH_PEAK_GROWTH_MB.
+GRAPH_MEMORY_FRAMES = (32, 256)
+GRAPH_PEAK_GROWTH_MB = 0.25
+# The eager loop of slam_step (the port's run_slam before this phase's
+# programs) at these frame counts, and the frontend alone, to show where
+# the old growth per frame came from.
+EAGER_MEMORY_FRAMES = (16, 48)
+K1_KERNEL, K2_KERNEL = "ransac_score_kernel", "match_stream_kernel"
+
+
+def tree_gap(a, b) -> tuple[bool, float]:
+    """(every leaf bit-equal, the largest |a − b| over the leaves)."""
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False, float("inf")
+    equal = all(x.shape == y.shape and torch.equal(x, y)
+                for x, y in zip(la, lb))
+    gap = max((float((x.double() - y.double()).abs().max())
+               for x, y in zip(la, lb) if x.numel() and x.shape == y.shape),
+              default=0.0)
+    return equal, gap
+
+
+def eager_run_slam(cam, feats, cfg, k, generator=None, images=None,
+                   xyz_imgs=None):
+    """run_slam as a plain Python loop of slam_step, each step's outputs
+    kept in lists and stacked at the end (the port's run_slam before
+    step programs): what phase 24 holds the replays to."""
+    from pre3_tpu_torch.ekf.slam import (
+        SlamTrajectory, StepRecord, StepStats, _frame, bootstrap_state,
+        slam_step,
+    )
+
+    n = feats.uv.shape[0]
+    pick = lambda x, i: None if x is None else x[i]  # noqa: E731
+    state = bootstrap_state(cam, _frame(feats, 0), cfg, k,
+                            xyz_img=pick(xyz_imgs, 0), image=pick(images, 0),
+                            generator=generator)
+    q0 = state.x[3:7]
+    steps = torch.arange(1, n, dtype=torch.int32, device=feats.uv.device)
+    ts, qs, stats, recs = [], [], [], []
+    for i in range(1, n):
+        state, (st, rec) = slam_step(
+            cam, state, _frame(feats, i), _frame(feats, i - 1), steps[i - 1],
+            cfg, generator=generator, image=pick(images, i),
+            xyz_img=pick(xyz_imgs, i), host_step=i)
+        ts.append(state.x[0:3])
+        qs.append(state.x[3:7])
+        stats.append(st)
+        recs.append(rec)
+    stack = lambda rows, cls: cls(*map(torch.stack, zip(*rows)))  # noqa: E731
+    return SlamTrajectory(
+        t=torch.cat([torch.zeros_like(ts[0])[None], torch.stack(ts)]),
+        q=torch.cat([q0[None], torch.stack(qs)]),
+        stats=stack(stats, StepStats), records=stack(recs, StepRecord)), (
+        ts, qs, stats, recs)
+
+
+def eager_run_sequence(feats, generator):
+    """VO's run_sequence as a plain loop of vo_pair."""
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.quaternion import qnormalize, qprod, qrotate
+    from pre3_tpu_torch.vo.dead_reckoning import Trajectory, vo_pair
+
+    n = feats.uv.shape[0]
+    dev = feats.uv.device
+    t_w = torch.zeros(3, device=dev)
+    q_w = torch.zeros(4, device=dev)
+    q_w[0].fill_(1.0)
+    unit = q_w
+    ts, qs = [t_w], [q_w]
+    oks = [torch.ones((), dtype=torch.bool, device=dev)]
+    nis = [torch.zeros((), dtype=torch.int32, device=dev)]
+    for i in range(1, n):
+        s = vo_pair(Features(*(x[i - 1] for x in feats)),
+                    Features(*(x[i] for x in feats)), generator=generator,
+                    batch=BATCH)
+        dt = torch.where(s.ok, s.delta.t, torch.zeros_like(t_w))
+        dq = torch.where(s.ok, s.delta.q, unit)
+        t_w = t_w + qrotate(q_w, dt)
+        q_w = qnormalize(qprod(q_w, dq))
+        ts.append(t_w)
+        qs.append(q_w)
+        oks.append(s.ok)
+        nis.append(s.n_inliers)
+    return Trajectory(*map(torch.stack, (ts, qs, oks, nis)))
+
+
+def eager_batched(cam, feats, cfg, k, gens):
+    """run_slam_batched as a plain loop of draw_batched and
+    slam_step_batched."""
+    from pre3_tpu_torch.ekf.slam import (
+        SlamTrajectory, StepRecord, StepStats, bootstrap_batched,
+        draw_batched, slam_step_batched,
+    )
+    from pre3_tpu_torch.frontend.pipeline import Features
+
+    n_seq, n = feats.uv.shape[:2]
+    dev = feats.uv.device
+    state = bootstrap_batched(cam, Features(*(x[:, 0] for x in feats)), cfg,
+                              k, generators=gens)
+    q0 = state.x[:, 3:7]
+    steps = torch.arange(1, n, dtype=torch.int32, device=dev)
+    ts, qs, stats, recs = [], [], [], []
+    for i in range(1, n):
+        d = draw_batched(cfg, feats.uv.shape[2], k, gens, dev)
+        state, (st, rec) = slam_step_batched(
+            cam, state, Features(*(x[:, i] for x in feats)),
+            Features(*(x[:, i - 1] for x in feats)), steps[i - 1], cfg, d)
+        ts.append(state.x[:, 0:3])
+        qs.append(state.x[:, 3:7])
+        stats.append(st)
+        recs.append(rec)
+    stack = lambda rows, cls: cls(*(torch.stack(f, 1)  # noqa: E731
+                                    for f in zip(*rows)))
+    kept = (ts, qs, stats, recs)
+    ts = torch.stack(ts, 1)
+    return SlamTrajectory(
+        t=torch.cat([torch.zeros_like(ts[:, :1]), ts], 1),
+        q=torch.cat([q0[:, None], torch.stack(qs, 1)], 1),
+        stats=stack(stats, StepStats), records=stack(recs, StepRecord)), kept
+
+
+def new_captures(before: dict) -> list[str]:
+    """The programs' graphs captured since ``before`` (id → variants), as
+    'name[variant]: capture s, pool MiB'."""
+    from pre3_tpu_torch.utils import graphs
+
+    out = []
+    for p in graphs.programs():
+        for v, cap in p.graphs.items():
+            if v not in before.get(id(p), ()):
+                out.append(f"{p.name}[{v}]: capture {cap.capture_s:.2f} s, "
+                           f"pool {cap.pool_bytes / 2**20:.1f} MiB")
+    return out
+
+
+def captured_now() -> dict:
+    from pre3_tpu_torch.utils import graphs
+
+    return {id(p): set(p.graphs) for p in graphs.programs()}
+
+
+def profiled_launches(fn):
+    """One profiled run of ``fn`` (``profile_slice._profiled``: one
+    window, opened by a run of ``fn`` that is not kept and timed
+    synchronize to synchronize): (host-issued launches,
+    device busy ms, the window's wall ms, K1 and K2 records by kernel
+    name, K1 and K2 runs on the kernels' device counters over the same
+    run)."""
+    from pre3_tpu_torch.utils.profile_slice import _profiled, device_ops
+
+    launches, busy, wall, avgs = _profiled(fn, warm=fn,
+                                           between=reset_launches)
+    counted = dict(zip((K1_KERNEL, K2_KERNEL), read_launches()))
+    names = {K1_KERNEL: 0, K2_KERNEL: 0}
+    for a in device_ops(avgs):
+        for k in names:
+            if k in a.key:
+                names[k] += a.count
+    return launches, busy / 1e3, 1e3 * wall, names, counted
+
+
+def host_seconds(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
+                     k2_per_step, limit=GRAPH_LAUNCHES_RUN_SLAM):
+    """One driver: ``run()`` graphed (its first call captures), again
+    under sync checks (replays only) and against ``eager()``; K1/K2 on
+    the kernels' device counters; host ms per step of the whole call
+    and of ``stepper()`` alone (the steps after the driver's eager
+    bootstrap), medians of 3; ``stepper()`` profiled for the host-issued
+    launches per step, device busy per step and the idle share of that
+    same window, with K1 and K2 found by kernel name as often as their
+    device counters ran them. Returns a dict of the figures."""
+    before = captured_now()
+    t_first = host_seconds(run)
+    caps = new_captures(before)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    k1, k2 = read_launches()
+    t_run = statistics.median([t_run] + [host_seconds(run) for _ in range(2)])
+    t_steps = statistics.median([host_seconds(stepper) for _ in range(3)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ref = eager()
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    eager_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    graphed_peak = peak_above(run)
+    equal, gap = tree_gap(got, ref)
+    launches, busy, wall, names, counted = profiled_launches(stepper)
+    res = dict(name=name, equal=equal, gap=gap, k1=k1, k2=k2,
+               launches=launches / steps, busy_ms=busy / steps,
+               host_ms=1e3 * t_run / steps, steps_ms=1e3 * t_steps / steps,
+               eager_host_ms=1e3 * t_eager / steps, idle=1.0 - busy / wall,
+               fps=(steps + 1) / t_run, eager_fps=(steps + 1) / t_eager,
+               names=names, first_s=t_first, captures=caps,
+               peak_mib=graphed_peak, eager_peak_mib=eager_peak)
+    phase("graphs", f"{name}: graphed vs eager bit-equal {equal} (max gap "
+          f"{gap:.3e}); K1 {k1}, K2 {k2} over {steps} steps (device "
+          f"counters); host {res['host_ms']:.3f} ms per step for the whole "
+          f"call, {res['fps']:.2f} frames/s (eager {res['eager_host_ms']:.3f}"
+          f" ms, {res['eager_fps']:.2f} frames/s), the steps alone "
+          f"{res['steps_ms']:.3f} ms per step; the steps profiled: launches "
+          f"per step {res['launches']:.2f}, device busy {res['busy_ms']:.4f} "
+          f"ms per step, idle share {res['idle']:.4f} of that window "
+          f"({wall / steps:.3f} ms per step), kernels by name {names} "
+          f"against the device counters {counted}; peak memory above the "
+          f"inputs {graphed_peak:.1f} MiB (eager {eager_peak:.1f}); first "
+          f"call {t_first:.2f} s; " + "; ".join(caps))
+    if not equal:
+        raise AssertionError(f"graphs {name}: graphed and eager differ "
+                             f"(max gap {gap:.3e})")
+    # the device counters are exact; the profiler may drop one replay's
+    # records from a window (on an H100: VO's 30 of 31 once, the
+    # attitude update's once, in 29 windows), so it must find both
+    # kernels by name
+    want = {K1_KERNEL: k1_per_step * steps, K2_KERNEL: k2_per_step * steps}
+    if (k1, k2) != tuple(want.values()) or counted != want or not all(
+            names.values()):
+        raise AssertionError(f"graphs {name}: K1 {k1}, K2 {k2} over {steps} "
+                             f"steps; profiled {names}, counted {counted}, "
+                             f"want {want}")
+    if res["launches"] > limit:
+        raise AssertionError(f"graphs {name}: {res['launches']:.2f} launches "
+                             f"per step (limit {limit})")
+    return res
+
+
+def peak_above(fn) -> float:
+    """MiB the device's allocated memory peaks above where it stood."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    del out
+    return peak
+
+
+def retained_per_step(rows) -> tuple[float, float]:
+    """(MiB of storage, MiB of data) one step's kept outputs hold: each
+    distinct storage behind them counted once."""
+    from torch.utils._pytree import tree_leaves
+
+    seen, storage, data = set(), 0, 0
+    for t in tree_leaves(rows):
+        s = t.untyped_storage()
+        data += t.nbytes
+        if s.data_ptr() not in seen:
+            seen.add(s.data_ptr())
+            storage += s.nbytes()
+    return storage / 2**20, data / 2**20
+
+
+def graph_memory(feats_all, cam, images):
+    """24d: the graphed run_slam's peak at GRAPH_MEMORY_FRAMES (K=256),
+    first call (the program made and captured) and steady; the eager loop
+    at EAGER_MEMORY_FRAMES and what one step's kept outputs hold; the
+    SIFT frontend's peak at GRAPH_MEMORY_FRAMES."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.utils import graphs
+
+    cfg = SlamConfig(**SIFT_CFG)
+    gen = lambda: torch.Generator("cuda").manual_seed(GRAPH_SEED)  # noqa: E731
+    cut = lambda n: Features(*(x[:n] for x in feats_all))  # noqa: E731
+    first, steady = {}, {}
+    for n in GRAPH_MEMORY_FRAMES:
+        run = lambda n=n: run_slam(cam, cut(n), cfg,  # noqa: E731
+                                   n_landmarks=SIFT_LANDMARKS,
+                                   generator=gen())
+        graphs.clear()  # the first call makes and captures the program
+        first[n] = peak_above(run)
+        steady[n] = peak_above(run)
+    span = GRAPH_MEMORY_FRAMES[1] - GRAPH_MEMORY_FRAMES[0]
+    growth = {k: (v[GRAPH_MEMORY_FRAMES[1]] - v[GRAPH_MEMORY_FRAMES[0]])
+              * 2**20 / 1e6 / span for k, v in (("first", first),
+                                                 ("steady", steady))}
+    eager, kept = {}, None
+    for n in EAGER_MEMORY_FRAMES:
+        eager[n] = peak_above(lambda n=n: eager_run_slam(
+            cam, cut(n), cfg, SIFT_LANDMARKS, gen()))
+    _, rows = eager_run_slam(cam, cut(4), cfg, SIFT_LANDMARKS, gen())
+    kept = retained_per_step([r[-1] for r in rows])
+    espan = EAGER_MEMORY_FRAMES[1] - EAGER_MEMORY_FRAMES[0]
+    e_growth = (eager[EAGER_MEMORY_FRAMES[1]] - eager[EAGER_MEMORY_FRAMES[0]]
+                ) * 2**20 / 1e6 / espan
+    fe = {}
+    for n in GRAPH_MEMORY_FRAMES:
+        im_n = [torch.as_tensor(a[:n], device="cuda") for a in images]
+        fe[n] = peak_above(lambda: sift_features(im_n))
+        del im_n
+    phase("graphs", f"24d memory, K={SIFT_LANDMARKS}: graphed run_slam peak "
+          f"above its inputs, first call (program made, captured) "
+          f"{ {n: round(v, 1) for n, v in first.items()} } MiB, steady "
+          f"{ {n: round(v, 1) for n, v in steady.items()} } MiB at "
+          f"{GRAPH_MEMORY_FRAMES} frames: {growth['first']:.4f} and "
+          f"{growth['steady']:.4f} MB per frame (limit "
+          f"{GRAPH_PEAK_GROWTH_MB}); eager loop "
+          f"{ {n: round(v, 1) for n, v in eager.items()} } MiB at "
+          f"{EAGER_MEMORY_FRAMES} frames: {e_growth:.4f} MB per frame; one "
+          f"eager step's kept outputs hold {kept[0]:.4f} MiB of storage for "
+          f"{kept[1]:.4f} MiB of data; the SIFT frontend's peak "
+          f"{ {n: round(v, 1) for n, v in fe.items()} } MiB at "
+          f"{GRAPH_MEMORY_FRAMES} frames")
+    if max(growth.values()) > GRAPH_PEAK_GROWTH_MB:
+        raise AssertionError(f"graphs: run_slam's peak grows "
+                             f"{growth} MB per frame")
+    return dict(first=first, steady=steady, growth=growth, eager=eager,
+                eager_growth=e_growth, kept=kept, frontend=fe)
+
+
+def online_graphs(images, cam):
+    """24b: OnlineSlam (SIFT, K=64) frame by frame against its own
+    fused_fn run eagerly; process_chunk against bootstrap + frontend +
+    the eager loop; a resumed and primed run against the uninterrupted
+    one."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig, _frame
+    from pre3_tpu_torch.runtime.online import OnlineSlam
+
+    n, k = GRAPH_FRAMES, GRAPH_ONLINE_LANDMARKS
+    cfg = SlamConfig(min_measured=50)
+    host = [a[:n] for a in images]
+    gen = lambda: torch.Generator("cuda").manual_seed(GRAPH_SEED)  # noqa: E731
+
+    def online(steps=n, slam=None):
+        slam = slam or OnlineSlam(cam, cfg=cfg, n_landmarks=k,
+                                  extractor="sift", generator=gen())
+        for i in range(slam.step_i, steps):
+            slam.process(*(a[i] for a in host))
+        return slam
+
+    def eager():
+        slam = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift",
+                          generator=gen())
+        frames = [[torch.as_tensor(a[i], device="cuda") for a in host]
+                  for i in range(n)]
+        state, step, prev, t, q = slam.boot_fn(*frames[0],
+                                               generator=slam.generator)
+        rows = [(t, q)]
+        for i in range(1, n):
+            state, step, prev, t, q, st, _ = slam.fused_fn(
+                state, step, prev, *frames[i], generator=slam.generator,
+                host_step=i)
+            rows.append((t, q, st))
+        return rows
+
+    slam = online()  # another instance, for "two instances equal"
+    before = captured_now()
+    slam2 = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift",
+                       generator=gen())
+    slam2.process(*(a[0] for a in host))  # the bootstrap, eager
+    reset_launches()
+    first = host_seconds(lambda: slam2.process(*(a[1] for a in host)))
+    caps = new_captures(before)
+    ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    t_loop = time.perf_counter()
+    for i in range(2, n):
+        t0 = time.perf_counter()
+        slam2.process(*(a[i] for a in host))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t_loop) / (n - 2)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    k1, k2 = read_launches()
+    ref = eager()
+    got = [(r.t, r.q) if r.stats is None else (r.t, r.q, r.stats)
+           for r in slam2.results]
+    equal, gap = tree_gap(got, ref)
+    same, _ = tree_gap([(r.t, r.q) for r in slam.results],
+                       [(r.t, r.q) for r in slam2.results])
+    # a profiled window of GRAPH_PROFILED_FRAMES more frames (the last
+    # ones fed again) on the same instance
+    again = [[a[i] for a in host] for i in range(n - GRAPH_PROFILED_FRAMES, n)]
+    launches, busy, p_wall, names, counted = profiled_launches(
+        lambda: [slam2.process(*f) for f in again])
+    launches /= GRAPH_PROFILED_FRAMES
+    busy /= GRAPH_PROFILED_FRAMES
+    idle = 1 - busy * GRAPH_PROFILED_FRAMES / p_wall
+    med = statistics.median(ms)
+    phase("graphs", f"OnlineSlam.process (SIFT, K={k}), {n} frames: "
+          f"graphed vs its fused_fn eagerly bit-equal {equal} (max gap "
+          f"{gap:.3e}), two instances equal {same}; K1 {k1}, K2 {k2}; "
+          f"process() returns in {med:.3f} ms (median, no host sync), "
+          f"{wall:.3f} ms per frame over frames 2–{n - 1} with the closing "
+          f"synchronize ({1e3 / wall:.1f} frames/s); {GRAPH_PROFILED_FRAMES} "
+          f"frames profiled: launches per frame {launches:.2f}, device busy "
+          f"{busy:.4f} ms per frame, idle share {idle:.4f} of that window "
+          f"({p_wall / GRAPH_PROFILED_FRAMES:.3f} ms per frame), kernels by "
+          f"name {names} against the device counters {counted}; peak memory "
+          f"{peak:.1f} MiB above the state; first frame after the bootstrap "
+          f"{first:.2f} s; " + "; ".join(caps))
+    # frames 1..n−1: the first of them captures (its warm-up uncounted)
+    if not (equal and same) or (k1, k2) != (n - 1, 2 * (n - 1)):
+        raise AssertionError("graphs: OnlineSlam.process differs from its "
+                             "eager frames or from its K1/K2 counts")
+    want = {K1_KERNEL: GRAPH_PROFILED_FRAMES,
+            K2_KERNEL: 2 * GRAPH_PROFILED_FRAMES}
+    if launches > GRAPH_LAUNCHES_FRAME or counted != want or not all(
+            names.values()):
+        raise AssertionError(f"graphs: process() issued {launches} launches "
+                             f"per frame; profiled {names}, counted "
+                             f"{counted}, want {want}")
+    out = dict(host_ms=wall, dispatch_ms=med, launches=launches,
+               busy_ms=busy, idle=idle, peak_mib=peak, captures=caps,
+               fps=1e3 / wall)
+
+    # process_chunk: bootstrap, then chunks of GRAPH_CHUNK
+    def chunked():
+        s = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift",
+                       generator=gen())
+        s.process(*(a[0] for a in host))
+        for lo in range(1, n, GRAPH_CHUNK):
+            s.process_chunk(*(a[lo:lo + GRAPH_CHUNK] for a in host))
+        return [(r.t, r.q) for r in s.results]
+
+    def chunked_eager():
+        from pre3_tpu_torch.ekf.slam import slam_step
+
+        s = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift",
+                       generator=gen())
+        frames = [torch.as_tensor(a, device="cuda") for a in host]
+        state, step, prev, t, q = s.boot_fn(*(f[0] for f in frames),
+                                            generator=s.generator)
+        rows = [(t, q)]
+        for lo in range(1, n, GRAPH_CHUNK):
+            feats = s._extract(*(f[lo:lo + GRAPH_CHUNK] for f in frames))
+            for j in range(feats.uv.shape[0]):
+                cur = _frame(feats, j)
+                state, _ = slam_step(cam, state, cur, prev, step + j, cfg,
+                                     generator=s.generator,
+                                     host_step=lo + j)
+                rows.append((state.x[0:3], state.x[3:7]))
+                prev = cur
+            step = step + feats.uv.shape[0]
+        return rows
+
+    c_equal, c_gap = tree_gap(chunked(), chunked_eager())
+    phase("graphs", f"OnlineSlam.process_chunk ({GRAPH_CHUNK} frames): "
+          f"graphed vs eager bit-equal {c_equal} (max gap {c_gap:.3e})")
+    if not c_equal:
+        raise AssertionError("graphs: process_chunk differs from its eager "
+                             "loop")
+
+    # resume: snapshot after GRAPH_RESUME_AT steps, a new instance resumed
+    # and primed, against the uninterrupted run
+    with tempfile.TemporaryDirectory(prefix="pre3_graphs_") as tmp:
+        a = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift",
+                       generator=gen(), snapshot_dir=tmp,
+                       snapshot_every=GRAPH_RESUME_AT)
+        online(GRAPH_RESUME_AT, a)
+        b = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift")
+        b.process(*(x[0] for x in host))  # a live carry to copy into
+        b.resume(f"{tmp}/snapshot_{GRAPH_RESUME_AT:05d}.npz")
+        b.prime(*(x[GRAPH_RESUME_AT - 1] for x in host))
+        online(n, b)
+        online(n, a)
+    r_equal, r_gap = tree_gap([(r.t, r.q) for r in a.results[GRAPH_RESUME_AT:]],
+                              [(r.t, r.q) for r in b.results[1:]])
+    s_equal, _ = tree_gap(tuple(a.state), tuple(b.state))
+    phase("graphs", f"OnlineSlam resume after step {GRAPH_RESUME_AT}: poses "
+          f"equal to the uninterrupted run {r_equal} (max gap {r_gap:.3e}), "
+          f"final state equal {s_equal}")
+    if not (r_equal and s_equal):
+        raise AssertionError("graphs: the resumed run differs")
+    return out
+
+
+def graphs_phase(images, im):
+    """Phase 24: the step programs on the card (see GRAPH_* above), on
+    the 256-frame corridor of phases 5–10 (host arrays and on the card)."""
+    from pre3_tpu_torch.ekf.slam import (
+        SlamConfig, _frame, bootstrap_batched, bootstrap_state, run_slam,
+        run_slam_batched, scan_steps, scan_steps_batched,
+    )
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils import measure_batch
+    from pre3_tpu_torch.vo.dead_reckoning import run_sequence
+
+    cam = sr4000_camera()
+    n = GRAPH_FRAMES
+    steps = n - 1
+    gen = lambda: torch.Generator("cuda").manual_seed(GRAPH_SEED)  # noqa: E731
+    feats_sift = sift_features(im)
+    im_n = [x[:n] for x in im]
+    sift = Features(*(x[:n] for x in feats_sift))
+    fast = features(im_n)
+    floor = torch.as_tensor(np.stack([tilted_floor_xyz()] * n),
+                            device="cuda")
+    results = {}
+
+    def slam_case(name, feats, cfg, k, images_=None, xyz=None, k2=2):
+        run = lambda: run_slam(cam, feats, cfg, n_landmarks=k,  # noqa: E731
+                               generator=gen(), images=images_,
+                               xyz_imgs=xyz)
+        eager = lambda: eager_run_slam(  # noqa: E731
+            cam, feats, cfg, k, gen(), images_, xyz)[0]
+        first = _frame(feats, 0)
+        state0 = bootstrap_state(
+            cam, first, cfg, k, xyz_img=None if xyz is None else xyz[0],
+            image=None if images_ is None else images_[0], generator=gen())
+        rest = Features(*(x[1:] for x in feats))
+        idx = torch.arange(1, n, dtype=torch.int32, device="cuda")
+        stepper = lambda: scan_steps(  # noqa: E731
+            cam, state0, first, rest, idx, cfg, generator=gen(),
+            xyz_imgs=None if xyz is None else xyz[1:], first_step=1,
+            images=None if images_ is None else images_[1:])
+        results[name] = graphed_vs_eager(name, run, eager, stepper, steps, 1,
+                                         k2)
+
+    slam_case("run_slam #3 (SIFT, K=256)", sift, SlamConfig(**SIFT_CFG),
+              SIFT_LANDMARKS)
+    slam_case("run_slam FAST EKF (K=256)", fast, SlamConfig(**EKF_CFG),
+              EKF_LANDMARKS)
+    slam_case("run_slam #2 NCC (K=256)", fast, SlamConfig(**NCC_CFG),
+              EKF_LANDMARKS, images_=im_n[0], xyz=im_n[1], k2=1)
+    slam_case("run_slam IEKF (K=256)", fast,
+              SlamConfig(**EKF_CFG, est_method="iekf"), EKF_LANDMARKS)
+    slam_case("run_slam attitude update every 4 (K=64, tilted floor)", fast,
+              SlamConfig(**EKF_CFG, heading_update_every=4), 64, xyz=floor)
+    vo_run = lambda: run_sequence(fast, generator=gen(),  # noqa: E731
+                                  batch=BATCH)
+    results["vo"] = graphed_vs_eager(
+        "run_sequence (VO)", vo_run, lambda: eager_run_sequence(fast, gen()),
+        vo_run, steps, 1, 1)
+    s = GRAPH_BATCH_SEQS
+    host, _ = measure_batch.render_batch(n, s)
+    bfeats = measure_batch.extract_sequences(
+        measure_batch.extract_features_sift,
+        *(torch.as_tensor(x, device="cuda") for x in host))
+    bcfg = measure_batch.CFG
+    bgens = lambda: measure_batch.generators(s, GRAPH_SEED, "cuda")  # noqa: E731
+    bstate = bootstrap_batched(cam, Features(*(x[:, 0] for x in bfeats)),
+                               bcfg, SIFT_LANDMARKS, generators=bgens())
+    results["batched"] = graphed_vs_eager(
+        f"run_slam_batched (S={s}, K={SIFT_LANDMARKS})",
+        lambda: run_slam_batched(cam, bfeats, bcfg, SIFT_LANDMARKS,
+                                 generators=bgens()),
+        lambda: eager_batched(cam, bfeats, bcfg, SIFT_LANDMARKS, bgens())[0],
+        lambda: scan_steps_batched(cam, bstate, bfeats, bcfg, SIFT_LANDMARKS,
+                                   generators=bgens()),
+        steps, 1, 2, limit=GRAPH_LAUNCHES_RUN_SLAM + s)
+    _, rows = eager_batched(cam, Features(*(x[:, :4] for x in bfeats)), bcfg,
+                            SIFT_LANDMARKS, bgens())
+    kept = retained_per_step([r[-1] for r in rows])
+    results["batched"]["kept_mib"] = kept
+    phase("graphs", f"one eager batched step (S={s}, K={SIFT_LANDMARKS}) "
+          f"keeps {kept[0]:.4f} MiB of storage for {kept[1]:.4f} MiB of "
+          f"data in its outputs")
+    results["online"] = online_graphs(images, cam)
+    results["memory"] = graph_memory(feats_sift, cam, images)
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -2792,6 +3422,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="pre3_smoke_") as tmp:
         _, (fast_k1, fast_k2), walk = timed(
             "fast-sift-walkthrough", fast_sift_phase, images, im, Path(tmp))
+
+    # ---- 24. the step programs: each driver graphed against eager ----
+    graph_res = timed("graphs", graphs_phase, images, im)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -2868,7 +3501,13 @@ def main() -> None:
          **b_times[f"K2 vo {BATCH_SEQS}x288x288x128"],
          "map_match": {"shape": f"S={BATCH_SEQS}, N1=256, N2=288, D=128",
                        **b_times[f"K2 map {BATCH_SEQS}x256x288x128"]}},
-    ], "pnp_icp_card_vs_cpu": pnp_err}), flush=True)
+    ], "pnp_icp_card_vs_cpu": pnp_err,
+        "graphs": {k: {f: v[f] for f in ("launches", "host_ms", "busy_ms",
+                                        "idle", "k1", "k2") if f in v}
+                   for k, v in graph_res.items() if k != "memory"},
+        "graph_memory": {k: graph_res["memory"][k]
+                         for k in ("growth", "eager_growth", "frontend")}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,5 +35,12 @@ import torch as _torch
 # default to TF32; both flags are set so neither path depends on defaults.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# The step programs capture the EKF step into CUDA graphs: small solves
+# (the attitude update's 3×3 system against a [3, D] right-hand side)
+# would otherwise go to MAGMA's batched solver, which cannot be captured.
+# cuSOLVER/cuBLAS serve every linalg call of the port instead (where
+# torch is built for CUDA: a CPU build has neither).
+if _torch.version.cuda is not None:
+    _torch.backends.cuda.preferred_linalg_library("cusolver")
 
 __version__ = "0.1.0"

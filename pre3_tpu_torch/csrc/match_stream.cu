@@ -190,8 +190,15 @@ match_stream_kernel(const float* __restrict__ d1,       // [S, N1, D]
                     int N1, int N2, int D, int vec16,
                     int64_t* __restrict__ out_idx,      // [S, N1]
                     float* __restrict__ out_best,       // [S, N1]
-                    float* __restrict__ out_second) {   // [S, N1]
+                    float* __restrict__ out_second,     // [S, N1]
+                    int32_t* __restrict__ launches) {   // [1] or null
   if constexpr (kEmpty) return;
+  // the launch counter: one per launch, where the kernel runs (a replayed
+  // CUDA graph counts too)
+  if (launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      threadIdx.x == 0) {
+    atomicAdd(launches, 1);
+  }
   {  // this block's sequence
     const size_t s = blockIdx.y;
     d1 += s * N1 * D;
@@ -423,7 +430,7 @@ match_stream_kernel(const float* __restrict__ d1,       // [S, N1, D]
 template <int kBM, int kWarpsN, bool kEmpty>
 int launch(const float* d1, const float* d2, const uint8_t* valid2, int S,
            int N1, int N2, int D, int64_t* idx, float* best, float* second,
-           cudaStream_t stream) {
+           cudaStream_t stream, int32_t* launches) {
   // Once per instantiation, on the first (eager) call: allow the dynamic
   // shared memory of the widest rows, kMaxD.
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -447,7 +454,7 @@ int launch(const float* d1, const float* d2, const uint8_t* valid2, int S,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, match_stream_kernel<kBM, kWarpsN, kEmpty>, d1, d2, valid2, N1, N2, D,
-      vec16, idx, best, second);
+      vec16, idx, best, second, launches);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -459,17 +466,17 @@ int launch(const float* d1, const float* d2, const uint8_t* valid2, int S,
 template <bool kEmpty>
 int dispatch(const float* d1, const float* d2, const uint8_t* valid2, int S,
              int N1, int N2, int D, int64_t* idx, float* best, float* second,
-             void* stream) {
+             void* stream, int32_t* launches) {
   if (S < 1 || S > 65535 || N1 < 1 || N2 < 1 || D < 1 || D > kMaxD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
   if (kRanks * ((N1 + 63) / 64) >= kWaveBlocks) {
     return launch<64, 2, kEmpty>(d1, d2, valid2, S, N1, N2, D, idx, best,
-                                 second, st);
+                                 second, st, launches);
   }
   return launch<32, 4, kEmpty>(d1, d2, valid2, S, N1, N2, D, idx, best, second,
-                               st);
+                               st, launches);
 }
 
 }  // namespace
@@ -478,13 +485,15 @@ int dispatch(const float* d1, const float* d2, const uint8_t* valid2, int S,
 // problem is S = 1). Returns the launch's error, then cudaGetLastError()
 // (0 = cudaSuccess), or cudaErrorInvalidValue without launching when a
 // size is out of range (1 <= S <= 65535, N1, N2 >= 1, 1 <= D <= 256).
-// `valid2` may be null (every column valid).
+// `valid2` may be null (every column valid). `launches` ([1] int32 on the
+// device, or null) gains one when the kernel runs.
 extern "C" int match_stream_launch(const float* d1, const float* d2,
                                    const uint8_t* valid2, int S, int N1,
                                    int N2, int D, int64_t* idx, float* best,
-                                   float* second, void* stream) {
+                                   float* second, void* stream,
+                                   int32_t* launches) {
   return dispatch<false>(d1, d2, valid2, S, N1, N2, D, idx, best, second,
-                         stream);
+                         stream, launches);
 }
 
 // An empty kernel at K2's launch configuration for S sequences of this
@@ -492,5 +501,5 @@ extern "C" int match_stream_launch(const float* d1, const float* d2,
 extern "C" int match_stream_floor_launch(int S, int N1, int N2, int D,
                                          void* stream) {
   return dispatch<true>(nullptr, nullptr, nullptr, S, N1, N2, D, nullptr,
-                        nullptr, nullptr, stream);
+                        nullptr, nullptr, stream, nullptr);
 }

@@ -158,8 +158,15 @@ ransac_score_kernel(const float* __restrict__ r,      // [S, B, 3, 3]
                     const float* __restrict__ thr_ptr,  // [S] squared gates
                     int B, int N,
                     int32_t* __restrict__ support,    // [S, B]
-                    float* __restrict__ err) {        // [S, B]
+                    float* __restrict__ err,          // [S, B]
+                    int32_t* __restrict__ launches) { // [1] or null
   if constexpr (kEmpty) return;
+  // the launch counter: one per launch, where the kernel runs (a replayed
+  // CUDA graph counts too)
+  if (launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      threadIdx.x == 0) {
+    atomicAdd(launches, 1);
+  }
   {  // this block's sequence
     const size_t s = blockIdx.y;
     r += s * B * 9;
@@ -225,14 +232,14 @@ ransac_score_kernel(const float* __restrict__ r,      // [S, B, 3, 3]
 template <bool kEmpty>
 int launch(const float* r, const float* t, const float* p1, const float* p2,
            const uint8_t* valid, const float* thr, int S, int B, int N,
-           int32_t* support, float* err, void* stream) {
+           int32_t* support, float* err, void* stream, int32_t* launches) {
   if (S < 1 || S > 65535 || B < 1 || N < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((B + kWarps - 1) / kWarps, S);
   ransac_score_kernel<kEmpty>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          r, t, p1, p2, valid, thr, B, N, support, err);
+          r, t, p1, p2, valid, thr, B, N, support, err, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -241,19 +248,21 @@ int launch(const float* r, const float* t, const float* p1, const float* p2,
 // Launches K1 over S sequences on `stream` (layouts above; a single
 // problem is S = 1). Returns cudaGetLastError() after the launch
 // (0 = cudaSuccess), or cudaErrorInvalidValue without launching for
-// S < 1, S > 65535, B < 1 or N < 0.
+// S < 1, S > 65535, B < 1 or N < 0. `launches` ([1] int32 on the device,
+// or null) gains one when the kernel runs.
 extern "C" int ransac_score_launch(const float* r, const float* t,
                                    const float* p1, const float* p2,
                                    const uint8_t* valid, const float* thr,
                                    int S, int B, int N, int32_t* support,
-                                   float* err, void* stream) {
+                                   float* err, void* stream,
+                                   int32_t* launches) {
   return launch<false>(r, t, p1, p2, valid, thr, S, B, N, support, err,
-                       stream);
+                       stream, launches);
 }
 
 // An empty kernel at K1's launch configuration for S sequences of B
 // hypotheses: the launch floor.
 extern "C" int ransac_score_floor_launch(int S, int B, void* stream) {
   return launch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, S,
-                      B, 0, nullptr, nullptr, stream);
+                      B, 0, nullptr, nullptr, stream, nullptr);
 }

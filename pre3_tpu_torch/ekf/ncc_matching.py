@@ -28,7 +28,7 @@ from pre3_tpu_torch.frontend.patch_warp import predict_patches
 from pre3_tpu_torch.frontend.patches import bilinear_sample
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.inverse_depth import inverse_depth_to_cartesian
-from pre3_tpu_torch.utils.device import to_device
+from pre3_tpu_torch.utils.device import cached_constant
 
 CHI2_2DOF_95 = 5.9915  # χ²(2, 0.95) — the reference's ellipse gate
 
@@ -38,11 +38,15 @@ def grid_unit(grid: int, dtype=torch.float32, device=None) -> torch.Tensor:
     ``jnp.linspace(-1, 1, G)`` under ``jit`` (how its ``run_slam`` runs
     it): XLA multiplies by the f32 reciprocal of G-1 and blends the two
     ends, s = i·f32(1/(G-1)), -1·(1-s) + s, each op rounded to f32. Built
-    in numpy f32 on the host and copied without a sync."""
-    one = np.float32(1.0)
-    s = np.arange(grid, dtype=np.float32) * (one / np.float32(grid - 1))
-    lin = np.float32(-1.0) * (one - s) + s
-    return to_device(torch.from_numpy(lin).to(dtype), device or "cpu")
+    in numpy f32 on the host once per (grid, dtype, device) and kept
+    there."""
+    def build():
+        one = np.float32(1.0)
+        s = np.arange(grid, dtype=np.float32) * (one / np.float32(grid - 1))
+        lin = np.float32(-1.0) * (one - s) + s
+        return torch.from_numpy(lin).to(dtype)
+
+    return cached_constant(("ncc_grid", grid, dtype), build, device or "cpu")
 
 
 def search_ic_matches_ncc(

@@ -22,7 +22,7 @@ from pre3_tpu_torch.ekf.state import CAM_DIM, EkfState
 from pre3_tpu_torch.geometry.quaternion import (
     e2q, qnormalize, qprod, qrotate, v2q,
 )
-from pre3_tpu_torch.utils.device import to_device
+from pre3_tpu_torch.utils.device import cached_constant
 
 
 def camera_transition(cam: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -48,7 +48,9 @@ def process_noise_u() -> torch.Tensor:
     return pn.to(torch.float32)
 
 
-_PN = process_noise_u()  # CPU; moved with utils.device.to_device
+def process_noise_on(device) -> torch.Tensor:
+    """``process_noise_u()`` on ``device``, built once per device."""
+    return cached_constant("process_noise_u", process_noise_u, device)
 
 
 def _norm_jac(q: torch.Tensor) -> torch.Tensor:
@@ -124,7 +126,7 @@ def predict(state: EkfState, u: torch.Tensor,
     VO failed). pn: optional [7, 7] control-space noise; default the
     reference's hand-tuned constant."""
     if pn is None:
-        pn = to_device(_PN, state.x.device)
+        pn = process_noise_on(state.x.device)
     cam = state.x[:CAM_DIM]
     cam_new = camera_transition(cam, u)
     f = jacfwd(lambda c: camera_transition(c, u))(cam)  # [13, 13]

@@ -21,11 +21,16 @@ one ``torch.func.vmap`` of ``slam_step`` over the sequences, so K1 and K2
 launch once per step for all of them (their custom ops' vmap rules), as
 the reference's tools/measure_batch.py vmaps its ``run_slam``.
 
-The reference's ``lax.scan`` is a Python loop that never reads a value
-back to the host. Its ``lax.cond`` on VO success is a ``torch.where``
-over both branches; its ``lax.cond`` on the step number (the periodic
-attitude update) is decided from the loop's host-side index, so the
-512-hypothesis plane fit runs on 1 step in N only. JAX's threefry draws
+The reference's jitted ``lax.scan`` is a step program
+(``utils/graphs.py``) keyed by one step's shapes: on the card each step
+is one replay of a captured CUDA graph that reads the step's frame and
+draws from its input row and updates the carry in place; on the CPU the
+same step runs eagerly. Nothing is read back to the host. Its
+``lax.cond`` on VO success is a ``torch.where`` over both branches; its
+``lax.cond`` on the step number (the periodic attitude update) is
+decided from the loop's host-side index, which picks the program's
+graph with the plane fit, so the 512-hypothesis fit runs on 1 step in N
+only. JAX's threefry draws
 cannot be reproduced in torch, so every random draw is an input
 (``draws=``) or comes from a ``torch.Generator``.
 """
@@ -37,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 from torch.func import jacfwd
+from torch.utils._pytree import tree_map
 
 from pre3_tpu_torch.backend.plane_fit import (
     floor_up_direction, initial_orientation_from_floor,
@@ -51,7 +57,7 @@ from pre3_tpu_torch.ekf.ncc_matching import search_ic_matches_ncc
 from pre3_tpu_torch.ekf.one_point_ransac import (
     one_point_ransac, pool_size, rescue_hi_inliers,
 )
-from pre3_tpu_torch.ekf.prediction import _PN, predict, predict_cv
+from pre3_tpu_torch.ekf.prediction import predict, predict_cv, process_noise_on
 from pre3_tpu_torch.ekf.state import CAM_DIM, EkfState, init_state
 from pre3_tpu_torch.ekf.update import (
     attitude_update, iterated_kalman_update, kalman_update,
@@ -59,7 +65,10 @@ from pre3_tpu_torch.ekf.update import (
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.quaternion import q2v, qrotate, v2q
-from pre3_tpu_torch.utils.device import to_device
+from pre3_tpu_torch.utils.graphs import (
+    STAGE_ROWS, Packing, StepProgram, empty_like_tree, load, program,
+    shape_key,
+)
 from pre3_tpu_torch.vo.dead_reckoning import vo_pair
 from pre3_tpu_torch.vo.ransac import _draw_gumbel
 
@@ -150,6 +159,23 @@ class SlamTrajectory(NamedTuple):
     records: StepRecord  # fields have leading axis F-1
 
 
+def draw_shapes(cfg: SlamConfig, n_feats: int,
+                n_landmarks: int) -> StepDraws:
+    """The shape of each draw a step takes from its generator under
+    ``cfg``, in the order it takes them (None: not drawn there): VO
+    RANSAC [vo_batch, n_feats], 1-PRE [ransac_batch, pool] and add
+    sampling [n_feats] ("weighted" only). The attitude update's plane
+    fit stays with ``floor_up_direction``."""
+    ms = cfg.max_update_slots if cfg.max_update_slots > 0 else None
+    return StepDraws(
+        vo=(cfg.vo_batch, n_feats) if cfg.motion_model != "cv" else None,
+        ransac=(cfg.ransac_batch, pool_size(n_landmarks, ms))
+        if cfg.est_method not in ("pure_ekf", "iekf")
+        and not cfg.only_predict else None,
+        add=(n_feats,) if cfg.init_sampling == "weighted" else None,
+    )
+
+
 def draw_step(
     cfg: SlamConfig,
     n_feats: int,
@@ -159,30 +185,19 @@ def draw_step(
     draws: StepDraws | None = None,
 ) -> StepDraws:
     """One step's draws: the fields ``draws`` sets, and every other draw
-    the step consumes under ``cfg`` taken from ``generator`` in the order
-    slam_step consumes them: VO RANSAC [vo_batch, n_feats], 1-PRE
-    [ransac_batch, pool] and add sampling [n_feats] ("weighted" only).
-    The attitude update's plane fit, the step's last draw, stays with
+    the step consumes under ``cfg`` (``draw_shapes``) taken from
+    ``generator`` in the order slam_step consumes them. The attitude
+    update's plane fit, the step's last draw, stays with
     ``floor_up_direction``. Without a generator the missing fields stay
     None."""
     d = StepDraws() if draws is None else draws
     if generator is None:
         return d
-
-    def take(field, needed, shape):
-        if field is not None or not needed:
-            return field
-        return _draw_gumbel(shape, generator, device=device)
-
-    ms = cfg.max_update_slots if cfg.max_update_slots > 0 else None
-    return StepDraws(
-        vo=take(d.vo, cfg.motion_model != "cv", (cfg.vo_batch, n_feats)),
-        ransac=take(d.ransac, cfg.est_method not in ("pure_ekf", "iekf")
-                    and not cfg.only_predict,
-                    (cfg.ransac_batch, pool_size(n_landmarks, ms))),
-        add=take(d.add, cfg.init_sampling == "weighted", (n_feats,)),
-        heading=d.heading,
-    )
+    shapes = draw_shapes(cfg, n_feats, n_landmarks)
+    return StepDraws(*(
+        f if f is not None or shape is None
+        else _draw_gumbel(shape, generator, device=device)
+        for f, shape in zip(d[:3], shapes[:3])), heading=d.heading)
 
 
 def _where_state(cond: torch.Tensor, a: EkfState, b: EkfState) -> EkfState:
@@ -247,7 +262,7 @@ def slam_step(
                 torch.eye(3, 6, dtype=dt, device=dev),
                 torch.cat([torch.zeros((4, 3), dtype=dt, device=dev), jq], 1),
             ])
-            pn = j @ vo.cov @ j.T + to_device(_PN, dev)
+            pn = j @ vo.cov @ j.T + process_noise_on(dev)
             # failed VO: large-ish identity-motion uncertainty
             pn = torch.where(vo.ok, pn,
                              torch.eye(7, dtype=dt, device=dev) * 1e-3)
@@ -400,6 +415,123 @@ def _frame(feats: Features, i: int) -> Features:
     return Features(*(x[i] for x in feats))
 
 
+def _row(x: torch.Tensor | None, i: torch.Tensor, dim: int = 0):
+    """Entry ``i`` ([1] int64 on x's device) of x's axis ``dim``: a
+    gather at a device index, which a captured step reads anew on every
+    replay."""
+    return None if x is None else x.index_select(dim, i).squeeze(dim)
+
+
+def step_outputs_like(state: EkfState, lead: tuple = ()):
+    """Empty (t, q, StepStats, StepRecord) of one step of ``state``'s
+    shapes (one sequence's), with leading axes ``lead``."""
+    dev, dt, k = state.x.device, state.x.dtype, state.n_landmarks
+
+    def e(shape, dtype=dt):
+        return torch.empty((*lead, *shape), dtype=dtype, device=dev)
+
+    i32, b = torch.int32, torch.bool
+    return (e((3,)), e((4,)),
+            StepStats(e((), i32), e((), i32), e((), i32), e((), i32),
+                      e((), i32), e((), b), e((), i32), e((), i32)),
+            StepRecord(e((k, 2)), e((k, 3)), e((k,), b), e((k,), i32),
+                       e((k,), b)))
+
+
+def _first(x: torch.Tensor | None):
+    return None if x is None else x[0]
+
+
+def _slice(x: torch.Tensor | None, lo: int, hi: int, dim: int = 0):
+    """x[lo:hi] along ``dim``, moved to the front."""
+    return None if x is None else x.narrow(dim, lo, hi - lo).movedim(dim, 0)
+
+
+def _scan_body(cam_model: Camera, cfg: SlamConfig, pin: Packing,
+               pout: Packing):
+    """``scan_steps``' step over a program's buffers, per variant (with
+    the attitude update's plane fit or not): the step's frame, index,
+    draws and images from the input row, the previous frame and the
+    state from the carry, ``slam_step``, the outputs into the output
+    row, the new state and the frame into the carry. The variant stands
+    in for the host index (``host_step`` 0 fits, 1 does not)."""
+
+    def make(fit: bool):
+        def body(b, gens):
+            frame, step, d, image, xyz = pin.unpack(b["inp"])
+            state, (stats, record) = slam_step(
+                cam_model, EkfState(*b["state"]), Features(*frame),
+                Features(*b["prev"]), step, cfg,
+                draws=d if fit else d._replace(heading=None),
+                generator=gens[0] if gens else None, image=image,
+                xyz_img=xyz, host_step=0 if fit else 1)
+            pout.pack((state.x[0:3], state.x[3:7], stats, record),
+                      b["out"])
+            load(b["state"], state)
+            load(b["prev"], frame)
+
+        return body
+
+    return make
+
+
+def _scan(cam_model, state, prev_last, feats, steps, cfg, draws, generator,
+          xyz_imgs, first_step, images):
+    """``scan_steps``' runs: (the program, whose carry holds the final
+    state, and the call's stacked outputs as views of its rows)."""
+    c = feats.uv.shape[0]
+    every = cfg.heading_update_every
+    if every > 0 and first_step is None:
+        raise ValueError("heading_update_every > 0 needs per-frame xyz "
+                         "images and the step's host index (host_step)")
+    fits = [every > 0 and (first_step + i) % every == 0 for i in range(c)]
+    draws = StepDraws() if draws is None else draws
+    if any(fits) and draws.heading is not None and (
+            draws.heading.shape[0] < sum(fits)):
+        raise ValueError(f"draws.heading holds {draws.heading.shape[0]} "
+                         f"plane fits for the {sum(fits)} this chunk runs")
+    heading = draws.heading if any(fits) else None
+    dev = steps.device
+    one = (_frame(feats, 0), steps[0],
+           StepDraws(*map(_first, draws[:3]), _first(heading)),
+           _first(images), _first(xyz_imgs))
+    pin = Packing(one)
+    pout = Packing(step_outputs_like(state))
+
+    def make():
+        bufs = dict(state=empty_like_tree(state),
+                    prev=empty_like_tree(one[0]),
+                    inp=pin.rows(device=dev), out=pout.rows(device=dev))
+        return StepProgram("scan_steps", bufs, dev,
+                           int(generator is not None),
+                           carry=("state", "prev"))
+
+    prog = program(("scan_steps", cam_model, cfg, generator is not None,
+                    shape_key(state, one)), make)
+    b = prog.buffers
+    load((b["state"], b["prev"]), (state, prev_last))
+    gens = [] if generator is None else [generator]
+    body = _scan_body(cam_model, cfg, pin, pout)
+    in_rows = pin.rows(min(c, STAGE_ROWS), device=dev)
+    out_rows = pout.rows(c, device=dev)
+    n_fit = 0
+    for lo in range(0, c, STAGE_ROWS):
+        hi = min(c, lo + STAGE_ROWS)
+        rows = in_rows[:hi - lo]
+        frame, step, d, image, xyz = pin.unpack(rows)
+        load((frame, step, d._replace(heading=None), image, xyz), (
+            Features(*(_slice(x, lo, hi) for x in feats)), steps[lo:hi],
+            StepDraws(*(_slice(x, lo, hi) for x in draws[:3])),
+            _slice(images, lo, hi), _slice(xyz_imgs, lo, hi)))
+        if heading is not None:  # the plane fits' draws, in fit order
+            for i in range(lo, hi):
+                if fits[i]:
+                    d.heading[i - lo].copy_(heading[n_fit])
+                    n_fit += 1
+        prog.run_rows(fits[lo:hi], body, rows, out_rows[lo:hi], gens)
+    return prog, pout.unpack(out_rows)
+
+
 def scan_steps(
     cam_model: Camera,
     state: EkfState,
@@ -414,38 +546,31 @@ def scan_steps(
     images: torch.Tensor | None = None,  # [C, H, W], matcher='ncc_warp'
 ):
     """Run slam_step over a feature chunk; resumable (returns the carry).
-    Returns (state, (t [C, 3], q [C, 4], stats, records))."""
-    ts, qs, stats, records = [], [], [], []
-    prev = prev_last
-    n_fits = 0  # draws.heading entries used so far
-    for i in range(feats.uv.shape[0]):
-        cur = _frame(feats, i)
-        host = None if first_step is None else first_step + i
-        fits = host is not None and cfg.heading_update_every > 0 and (
-            host % cfg.heading_update_every == 0)
-        step_draws = None
-        if draws is not None:
-            pick = lambda d: None if d is None else d[i]  # noqa: E731
-            step_draws = StepDraws(
-                vo=pick(draws.vo), ransac=pick(draws.ransac),
-                add=pick(draws.add),
-                heading=(draws.heading[n_fits] if fits
-                         and draws.heading is not None else None))
-        n_fits += fits
-        state, (st, rec) = slam_step(
-            cam_model, state, cur, prev, steps[i], cfg, draws=step_draws,
-            generator=generator,
-            image=None if images is None else images[i],
-            xyz_img=None if xyz_imgs is None else xyz_imgs[i],
-            host_step=host)
-        ts.append(state.x[0:3])
-        qs.append(state.x[3:7])
-        stats.append(st)
-        records.append(rec)
-        prev = cur
-    stack = lambda rows, cls: cls(*(torch.stack(f) for f in zip(*rows)))
-    return state, (torch.stack(ts), torch.stack(qs), stack(stats, StepStats),
-                   stack(records, StepRecord))
+    Returns (state, (t [C, 3], q [C, 4], stats, records)).
+
+    The port's ``lax.scan``: a step program (``utils/graphs.py``) keyed
+    by (camera, cfg, one step's shapes and dtypes, device, injected
+    draws), so one program serves chunks of every length. It owns one
+    step's input row (frame, step index, draws, images), the carry (the
+    state and the previous frame) and one step's output row. Per step
+    the host copies the step's packed inputs into the input row, runs
+    the step (``slam_step``, the outputs into the output row, the new
+    state and the frame into the carry in place) and copies the output
+    row into the call's storage. On the card each run is one replay of a
+    captured CUDA graph (two graphs where the attitude update runs: the
+    host picks the one with the plane fit by its step index, and packs
+    the fit's draws into that step's row); on the CPU the same step runs
+    eagerly. The inputs are packed ``STAGE_ROWS`` steps at a time. The
+    returned state is a copy of the carry, and the outputs live in the
+    call's own storage: a later call, which reuses the program's buffers
+    in place as JAX's donated carry reuses its input, changes neither."""
+    prog, (ts, qs, stats, records) = _scan(
+        cam_model, state, prev_last, feats, steps, cfg, draws, generator,
+        xyz_imgs, first_step, images)
+    contiguous = lambda x: x.contiguous()  # noqa: E731
+    return (EkfState(*(x.clone() for x in prog.buffers["state"])),
+            (ts.contiguous(), qs.contiguous(), tree_map(contiguous, stats),
+             tree_map(contiguous, records)))
 
 
 def run_slam(
@@ -459,7 +584,9 @@ def run_slam(
     xyz_imgs: torch.Tensor | None = None,  # [F, H, W, 3]
 ) -> SlamTrajectory:
     """Run EKF-SLAM over a stacked feature sequence. ``draws`` supplies
-    the random draws; whatever it leaves None comes from ``generator``."""
+    the random draws; whatever it leaves None comes from ``generator``.
+    The bootstrap runs eagerly, the F−1 steps as ``scan_steps``' program
+    (one graph replay per step on the card)."""
     n_frames = feats.uv.shape[0]
     dev = feats.uv.device
     draws = SlamDraws(steps=StepDraws()) if draws is None else draws
@@ -473,16 +600,16 @@ def run_slam(
     )
     steps = torch.arange(1, n_frames, dtype=torch.int32, device=dev)
     rest = Features(*(x[1:] for x in feats))
-    _, (ts, qs, stats, records) = scan_steps(
-        cam_model, state0, first, rest, steps, cfg, draws=draws.steps,
-        generator=generator,
-        xyz_imgs=None if xyz_imgs is None else xyz_imgs[1:], first_step=1,
-        images=None if images is None else images[1:],
-    )
+    _, (ts, qs, stats, records) = _scan(
+        cam_model, state0, first, rest, steps, cfg, draws.steps, generator,
+        None if xyz_imgs is None else xyz_imgs[1:], 1,
+        None if images is None else images[1:])
+    contiguous = lambda x: x.contiguous()  # noqa: E731
     return SlamTrajectory(
         t=torch.cat([torch.zeros((1, 3), dtype=ts.dtype, device=dev), ts]),
         q=torch.cat([state0.x[3:7][None], qs]),  # identity, or the prior
-        stats=stats, records=records,
+        stats=tree_map(contiguous, stats),
+        records=tree_map(contiguous, records),
     )
 
 
@@ -573,6 +700,132 @@ def slam_step_batched(
             state, frame, prev_frame, d, step)
 
 
+# Steps of draws the S generators make in one run of run_slam_batched's
+# draw variants, ahead of the steps that read them.
+DRAW_BLOCK = 16
+
+
+def _blocks(n: int) -> list[int]:
+    """n as a sum of powers of two, largest first: the draw variants that
+    fill n steps' draws."""
+    return [1 << k for k in reversed(range(n.bit_length())) if n >> k & 1]
+
+
+def _batched_bodies(cam_model: Camera, cfg: SlamConfig, n_landmarks: int,
+                    pin: Packing, pout: Packing):
+    """``run_slam_batched``' variants over a program's buffers, by
+    variant: ("draw", n) draws n steps' draws from the S generators into
+    the draw block at the device write index, in the order the eager
+    loop draws them; "step" reads the step's frames, index and injected
+    draws from the input row, its drawn draws from the block at the
+    device read index, runs ``slam_step_batched``, writes the outputs
+    into the output row and the new states and frames into the carry."""
+
+    def make(variant):
+        if variant == "step":
+            def body(b, gens):
+                frame, step, inj = pin.unpack(b["inp"])
+                j = b["jb"][0:1]
+                d = StepDraws(*(x if buf is None else _row(buf, j)
+                                for x, buf in zip(inj, b["drawn"])))
+                state, (stats, record) = slam_step_batched(
+                    cam_model, EkfState(*b["state"]), Features(*frame),
+                    Features(*b["prev"]), step, cfg, d)
+                pout.pack((state.x[:, 0:3], state.x[:, 3:7], stats, record),
+                          b["out"])
+                load(b["state"], state)
+                load(b["prev"], frame)
+                j.add_(1)
+
+            return body
+
+        _, n = variant
+
+        def draw(b, gens):
+            frame, _, inj = pin.unpack(b["inp"])
+            base = b["jb"][1:2]
+            for m in range(n):
+                d = draw_batched(cfg, frame.uv.shape[1], n_landmarks, gens,
+                                 frame.uv.device, inj)
+                for buf, x in zip(b["drawn"], d):
+                    if buf is not None:
+                        buf.index_copy_(0, base + m, x[None])
+            base.add_(n)
+
+        return draw
+
+    return make
+
+
+def scan_steps_batched(
+    cam_model: Camera,
+    state: EkfState,  # the S bootstrapped states, leading axis S
+    feats: Features,  # stacked, leading axes [S, F]
+    cfg: SlamConfig = SlamConfig(),
+    n_landmarks: int = 64,
+    draws: StepDraws | None = None,  # fields with leading axes [S, F−1]
+    generators: list[torch.Generator] | None = None,
+):
+    """``run_slam_batched``' F−1 steps from its bootstrapped states:
+    (t [S, F−1, 3], q [S, F−1, 4], stats, records), each with leading
+    axes [S, F−1].
+
+    A step program (``utils/graphs.py``) keyed by one step's shapes, as
+    ``scan_steps``' is: one graph replay per step on the card, eager on
+    the CPU. The S generators' draws are made ``DRAW_BLOCK`` steps ahead
+    by the program's draw variants (graphs of 1, 2, 4, … steps' draws,
+    so a block of any length takes at most log₂ DRAW_BLOCK + 1 of them),
+    each generator's in the order the eager loop of ``draw_batched``
+    takes them: the host seeds the S registered generators once per draw
+    run, not once per step."""
+    _check_batched(cfg)
+    n_seq, n_frames = feats.uv.shape[:2]
+    n_steps = n_frames - 1
+    dev = feats.uv.device
+    steps = torch.arange(1, n_frames, dtype=torch.int32, device=dev)
+    gens = list(generators or [])
+    inj = StepDraws() if draws is None else draws
+    one = (Features(*(x[:, 0] for x in feats)), steps[0],
+           StepDraws(*(None if x is None else x[:, 0] for x in inj)))
+    pin = Packing(one)
+    pout = Packing(step_outputs_like(EkfState(*(x[0] for x in state)),
+                                     (n_seq,)))
+    shapes = draw_shapes(cfg, feats.uv.shape[2], n_landmarks)
+
+    def make():
+        drawn = StepDraws(*(
+            None if x is not None or shape is None or not gens
+            else torch.empty((DRAW_BLOCK, n_seq, *shape), device=dev)
+            for x, shape in zip(inj[:3], shapes[:3])))
+        bufs = dict(state=empty_like_tree(state),
+                    prev=empty_like_tree(one[0]), inp=pin.rows(device=dev),
+                    out=pout.rows(device=dev), drawn=drawn,
+                    jb=torch.zeros(2, dtype=torch.int64, device=dev))
+        return StepProgram("run_slam_batched", bufs, dev, len(gens),
+                           carry=("state", "prev", "jb"))
+
+    prog = program(("run_slam_batched", cam_model, cfg, n_landmarks,
+                    len(gens), shape_key(state, one)), make)
+    b = prog.buffers
+    load((b["state"], b["prev"]), (state, one[0]))
+    bodies = _batched_bodies(cam_model, cfg, n_landmarks, pin, pout)
+    in_rows = pin.rows(min(n_steps, DRAW_BLOCK), device=dev)
+    out_rows = pout.rows(n_steps, device=dev)
+    for lo in range(0, n_steps, DRAW_BLOCK):
+        hi = min(n_steps, lo + DRAW_BLOCK)
+        rows = in_rows[:hi - lo]
+        pin.pack((Features(*(_slice(x, lo + 1, hi + 1, 1) for x in feats)),
+                  steps[lo:hi],
+                  StepDraws(*(_slice(x, lo, hi, 1) for x in inj))), rows)
+        if gens:
+            b["jb"].zero_()
+            for n in _blocks(hi - lo):
+                prog.run(("draw", n), bodies(("draw", n)), gens)
+        prog.run_rows(["step"] * (hi - lo), bodies, rows, out_rows[lo:hi])
+    seq_major = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
+    return tree_map(seq_major, pout.unpack(out_rows))
+
+
 def run_slam_batched(
     cam_model: Camera,
     feats: Features,  # stacked, leading axes [S, F]
@@ -584,7 +837,8 @@ def run_slam_batched(
     """Run EKF-SLAM over S independent sequences at once (the reference's
     ``jax.vmap(run_slam)`` in tools/measure_batch.py):
     ``bootstrap_batched``, then each of the F−1 steps as one
-    ``slam_step_batched``, so K1 and K2 launch once per step for all S.
+    ``slam_step_batched``, so K1 and K2 launch once per step for all S
+    (``scan_steps_batched``: one graph replay per step on the card).
 
     ``draws``: a SlamDraws whose fields carry a leading S axis; whatever
     it leaves None comes from ``generators[s]``, one per sequence, drawn
@@ -594,33 +848,17 @@ def run_slam_batched(
     leading S axis. The descriptor matcher only, without the periodic
     attitude update (no per-frame images)."""
     _check_batched(cfg)
-    n_seq, n_frames, n_feats = feats.uv.shape[:3]
+    n_seq = feats.uv.shape[0]
     if generators is not None and len(generators) != n_seq:
         raise ValueError(f"run_slam_batched: {len(generators)} generators "
                          f"for {n_seq} sequences")
     draws = SlamDraws(steps=StepDraws()) if draws is None else draws
-    dev = feats.uv.device
     state = bootstrap_batched(cam_model, Features(*(x[:, 0] for x in feats)),
                               cfg, n_landmarks, draws.boot_add, generators)
-    q0 = state.x[:, 3:7]
-    steps = torch.arange(1, n_frames, dtype=torch.int32, device=dev)
-    ts, qs, stats, records = [], [], [], []
-    for i in range(1, n_frames):
-        d = draw_batched(cfg, n_feats, n_landmarks, generators, dev,
-                         StepDraws(*(None if f is None else f[:, i - 1]
-                                     for f in draws.steps)))
-        state, (st, rec) = slam_step_batched(
-            cam_model, state, Features(*(x[:, i] for x in feats)),
-            Features(*(x[:, i - 1] for x in feats)), steps[i - 1], cfg, d)
-        ts.append(state.x[:, 0:3])
-        qs.append(state.x[:, 3:7])
-        stats.append(st)
-        records.append(rec)
-    ts, qs = torch.stack(ts, 1), torch.stack(qs, 1)
+    ts, qs, stats, records = scan_steps_batched(
+        cam_model, state, feats, cfg, n_landmarks, draws.steps, generators)
     return SlamTrajectory(
-        t=torch.cat([torch.zeros((n_seq, 1, 3), dtype=ts.dtype, device=dev),
-                     ts], 1),
-        q=torch.cat([q0[:, None], qs], 1),
-        stats=_stack(stats, StepStats, 1),
-        records=_stack(records, StepRecord, 1),
+        t=torch.cat([torch.zeros_like(ts[:, :1]), ts], 1),
+        q=torch.cat([state.x[:, None, 3:7], qs], 1),
+        stats=stats, records=records,
     )

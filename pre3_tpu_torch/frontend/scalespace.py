@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pre3_tpu_torch.utils.device import to_device
+from pre3_tpu_torch.utils.device import cached_constant
 
 
 def gaussian_kernel(sigma: float, truncate: float = 4.0) -> np.ndarray:
@@ -31,9 +31,11 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     reference's SAME convolution)."""
     if sigma <= 0:
         return img
-    taps = gaussian_kernel(sigma)
-    n = taps.shape[0]
-    k = to_device(torch.from_numpy(taps), img.device).to(img.dtype)
+    k = cached_constant(
+        ("gaussian_taps", sigma, img.dtype),
+        lambda: torch.from_numpy(gaussian_kernel(sigma)).to(img.dtype),
+        img.device)
+    n = k.shape[0]
     lead, (h, w) = img.shape[:-2], img.shape[-2:]
     x = img.reshape(-1, 1, h, w)
     x = F.conv2d(x, k.reshape(1, 1, n, 1), padding=((n - 1) // 2, 0))

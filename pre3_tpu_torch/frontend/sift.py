@@ -40,7 +40,7 @@ import torch
 from pre3_tpu_torch.frontend.scalespace import (
     Octave, build_pyramid, gradient_polar,
 )
-from pre3_tpu_torch.utils.device import to_device
+from pre3_tpu_torch.utils.device import cached_constant
 from pre3_tpu_torch.utils.topk import stable_topk
 
 NBP = 4  # descriptor spatial bins
@@ -328,8 +328,10 @@ def _tri_sepconv(x: torch.Tensor, delta: float,
     branch (pre3_tpu/frontend/sift.py:330-340): bf16 band matrices and
     input, f32 accumulation, the first product rounded to bf16."""
     h, w, c = x.shape[-3:]
-    br = to_device(torch.from_numpy(_band_matrix(h, delta)), x.device)
-    bc = to_device(torch.from_numpy(_band_matrix(w, delta)), x.device)
+    br, bc = (cached_constant(
+        ("band_matrix", n, delta),
+        lambda n=n: torch.from_numpy(_band_matrix(n, delta)), x.device)
+        for n in (h, w))
     if not fast:
         y = torch.matmul(br, x.reshape(*x.shape[:-3], h, w * c))
         return torch.matmul(bc, y.reshape(x.shape))  # [..., H, W, C]

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from pre3_tpu_torch.utils.cuda_build import load_library
+from pre3_tpu_torch.utils.launch_count import Counted
 from pre3_tpu_torch.utils.vmap_ops import check_not_batched, to_front
 
 BIG = 1e30
@@ -109,7 +110,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.match_stream_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p] * 4
+            ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
         floor = lib.match_stream_floor_launch
         floor.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -170,14 +171,15 @@ def _launch_k2(d1: torch.Tensor, d2: torch.Tensor,
         ptrs = (d1.data_ptr(), d2.data_ptr(),
                 0 if valid2 is None else valid2.data_ptr())
         outs = (idx.data_ptr(), best.data_ptr(), second.data_ptr())
+        count = match_descriptors_k2.pointer(device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             s = lead[0] if lead else 1
-            rc = lib.match_stream_launch(*ptrs, s, n1, n2, d, *outs, stream)
+            rc = lib.match_stream_launch(*ptrs, s, n1, n2, d, *outs, stream,
+                                         count)
         if rc != 0:
             raise RuntimeError(f"match_stream kernel launch failed: cudaError "
                                f"{rc} (S={s}, N1={n1}, N2={n2}, D={d})")
-        match_descriptors_k2.launches += 1
     return idx, best, second
 
 
@@ -223,6 +225,7 @@ def _k2_vmap(info, in_dims, *args):
     return _k2_op(*to_front(info.batch_size, in_dims, args)), (0, 0, 0)
 
 
+@Counted
 def match_descriptors_k2(
     d1: torch.Tensor,
     d2: torch.Tensor,
@@ -236,8 +239,9 @@ def match_descriptors_k2(
     raises. The ratio test and ``valid1`` are applied after the kernel,
     as the reference does.
 
-    ``match_descriptors_k2.launches`` counts kernel launches (a batched
-    launch counts one)."""
+    ``match_descriptors_k2.launches`` counts the kernel's runs, added on
+    the device by the kernel itself (a batched launch counts one, and so
+    does each replay of a graph that holds one; ``utils/launch_count``)."""
     if d1.device.type != "cpu":
         _k2_sizes(d1, d2)  # shape errors first, before any device work
         if d1.device.type != "cuda":
@@ -247,8 +251,6 @@ def match_descriptors_k2(
     return Matches(index=idx, dist2=best, dist2_second=second,
                    accepted=_ratio_test(best, second, ratio, valid1))
 
-
-match_descriptors_k2.launches = 0
 
 
 def match_descriptors_auto(

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from pre3_tpu_torch.utils.cuda_build import load_library
+from pre3_tpu_torch.utils.launch_count import Counted
 from pre3_tpu_torch.utils.vmap_ops import check_not_batched, to_front
 
 
@@ -74,7 +75,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ransac_score_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p] * 3
+            ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
         floor = lib.ransac_score_floor_launch
         floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -122,14 +123,14 @@ def _launch(r, t, p1, p2, valid, threshold):
     ptrs = (r.data_ptr(), t.data_ptr(), p1.data_ptr(), p2.data_ptr(),
             valid.data_ptr(), threshold.data_ptr())
     outs = (support.data_ptr(), err.data_ptr())
+    count = score_hypotheses.pointer(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ransac_score_launch(*ptrs, lead[0] if lead else 1, b, n,
-                                     *outs, stream)
+                                     *outs, stream, count)
     if rc != 0:
         raise RuntimeError(f"ransac_score kernel launch failed: cudaError {rc} "
                            f"(S={lead[0] if lead else 1}, B={b}, N={n})")
-    score_hypotheses.launches += 1
     return support, err
 
 
@@ -171,6 +172,7 @@ def _score_vmap(info, in_dims, *args):
     return _score_op(*to_front(info.batch_size, in_dims, args)), (0, 0)
 
 
+@Counted
 def score_hypotheses(
     r: torch.Tensor,
     t: torch.Tensor,
@@ -184,11 +186,9 @@ def score_hypotheses(
     ``torch.func.vmap`` one batched launch for all sequences. Nothing
     falls back: a CUDA input the kernel does not take raises.
 
-    ``score_hypotheses.launches`` counts kernel launches (a batched
-    launch counts one)."""
+    ``score_hypotheses.launches`` counts the kernel's runs, added on the
+    device by the kernel itself (a batched launch counts one, and so
+    does each replay of a graph that holds one; ``utils/launch_count``)."""
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"score_hypotheses: no kernel for device {r.device}")
     return _score_op(r, t, p1, p2, valid, threshold)
-
-
-score_hypotheses.launches = 0

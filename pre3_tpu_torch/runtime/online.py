@@ -1,27 +1,43 @@
 """Online streaming SLAM driver: frames in one at a time, poses out.
 
-Port of ``pre3_tpu/runtime/online.py::OnlineSlam``. The reference fuses
-each frame's pipeline (frontend, VO, EKF step, map management) into one
-jitted program and keeps the step counter and PRNG key in its
-device-resident carry, so the host dispatches and never waits. Here the
-same pipeline runs eagerly and the host never waits either:
+Port of ``pre3_tpu/runtime/online.py::OnlineSlam``. The reference runs
+each frame's pipeline (frontend, VO, EKF step, map management) as one
+jitted program whose carry (state, PRNG key, step, previous frame's
+features) is donated and stays on the device, so the host dispatches
+once per frame and never waits. Here:
 
-  * a frame is staged through pinned host buffers and copied to the card
-    with ``non_blocking=True`` (a pageable copy would wait for the card
-    every frame). A buffer is reused only once the event recorded after
-    its copy has passed; while none has, another is allocated;
-  * the step counter lives on the device, beside the EKF state and the
-    previous frame's features; the host keeps the same index as a Python
-    integer, which decides the periodic attitude update's steps;
-  * nothing is read back: results are device tensors, and reading them
+  * each frame after the bootstrap is one step program
+    (``utils/graphs.py``), this instance's own: on the card one replay of
+    a captured CUDA graph holding the frontend, ``slam_step`` (K1 and K2
+    inside), the carry's update in place and the step counter; on the
+    CPU the same body (``fused_fn``) runs eagerly. The host issues the
+    frame's three copies from a pinned staging slot into the program's
+    input buffers, the generator fills, the graph launch and one copy of
+    the step's packed outputs into a row of per-step storage;
+  * the carry lives in the program's buffers: ``state`` aliases it, and
+    the next ``process()`` overwrites it in place, as the reference's
+    donated carry invalidates the state it was given (clone it to keep
+    it). ``resume`` and ``prime`` copy into the carry, never rebind what
+    the graph reads;
+  * frames are staged through pinned host buffers and copied with
+    ``non_blocking=True`` (a pageable copy would wait for the card every
+    frame). A buffer is reused only once the event recorded after its
+    copy has passed; while none has, another is allocated;
+  * the step counter lives on the device; the host keeps the same index
+    as a Python integer, which picks the program's variant with the
+    periodic attitude update. ``PRE3_SIFT_FAST_MATH`` picks the
+    frontend's branch per call, and a variant per value;
+  * nothing is read back: results are device tensors, rows of per-step
+    storage that no later frame overwrites, and reading them
     (``trajectory``) is what synchronises.
 
-Random draws come from ``generator`` (a ``torch.Generator`` on the
-device, the port's counterpart of the reference's key) or, per call, from
-``draws``. ``process_chunk`` runs C frames as one frontend batch and one
-``scan_steps``. Each step's ``StepRecord`` is kept on the device;
-``smooth()`` brings them to the host once and runs the keyframe BA
-backend over them. Snapshots every ``snapshot_every`` steps
+The bootstrap frame runs eagerly (``boot_fn``), once. Random draws come
+from ``generator`` (a ``torch.Generator`` on the device, the port's
+counterpart of the reference's key) or, per call, from ``draws``.
+``process_chunk`` runs C frames as one frontend batch and ``scan_steps``'
+program (one replay per step). Each step's ``StepRecord`` is kept on the
+device; ``smooth()`` brings them to the host once and runs the keyframe
+BA backend over them. Snapshots every ``snapshot_every`` steps
 (``utils/checkpoint.py``) carry the generator's state, so a resumed run
 continues the same stream.
 """
@@ -38,19 +54,24 @@ import torch
 
 from pre3_tpu_torch.ekf.slam import (
     SlamConfig, SlamDraws, SlamTrajectory, StepDraws, StepRecord, StepStats,
-    _frame, bootstrap_state, scan_steps, slam_step,
+    _frame, bootstrap_state, scan_steps, slam_step, step_outputs_like,
 )
 from pre3_tpu_torch.ekf.state import EkfState
 from pre3_tpu_torch.frontend.pipeline import (
-    extract_features, extract_features_sift,
+    Features, extract_features, extract_features_sift,
 )
+from pre3_tpu_torch.frontend.sift import _fast_math
 from pre3_tpu_torch.geometry.camera import Camera
-from pre3_tpu_torch.utils.device import to_device
+from pre3_tpu_torch.utils.graphs import (
+    Packing, StepProgram, empty_like_tree, load, shape_key,
+)
 from pre3_tpu_torch.utils.profiling import StageTimer
 
 # Pinned staging sets kept per frame shape; past this many in flight the
 # upload waits for the oldest copy instead of allocating another.
 MAX_STAGING = 8
+# Rows of per-step result storage allocated at a time.
+STORE_ROWS = 64
 
 
 class StepResult(NamedTuple):
@@ -73,16 +94,23 @@ class _Slot:
 class _Staging:
     """Host → device frame uploads that never wait for the card: a ring
     of pinned slots per input shape, least recently used first. On a CPU
-    device the arrays are only converted to float32 tensors."""
+    device the arrays are only converted to float32 tensors. With
+    ``out`` the arrays are copied into those device tensors (a step
+    program's input buffers) instead of new ones."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self._rings: dict[tuple, list[_Slot]] = {}
 
-    def __call__(self, *arrays) -> tuple[torch.Tensor, ...]:
+    def __call__(self, *arrays, out=None) -> tuple[torch.Tensor, ...]:
         if self.device.type != "cuda":
-            return tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32)
-                         .to(self.device) for a in arrays)
+            got = tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32)
+                        .to(self.device) for a in arrays)
+            if out is None:
+                return got
+            for o, g in zip(out, got):
+                o.copy_(g)
+            return out
         shapes = tuple(tuple(np.shape(a)) for a in arrays)
         ring = self._rings.setdefault(shapes, [])
         slot = next((s for s in ring if s.event.query()), None)
@@ -96,7 +124,12 @@ class _Staging:
         ring.append(slot)
         for buf, a in zip(slot.bufs, arrays):
             buf.copy_(torch.from_numpy(np.asarray(a)))
-        out = tuple(b.to(self.device, non_blocking=True) for b in slot.bufs)
+        if out is None:
+            out = tuple(b.to(self.device, non_blocking=True)
+                        for b in slot.bufs)
+        else:
+            for o, b in zip(out, slot.bufs):
+                o.copy_(b, non_blocking=True)
         slot.event.record()
         return out
 
@@ -155,10 +188,53 @@ class OnlineSlam:
         # (1 per frame, C per chunk): the smoother's input, as run_slam
         # emits it
         self._records: list[StepRecord] = []
+        # this instance's frame programs and their output layouts (by
+        # shapes and injected draws), and the block of per-step storage
+        # rows being filled
+        self.programs: dict[tuple, tuple[StepProgram, Packing]] = {}
+        self._store: torch.Tensor | None = None
+        self._store_used = 0
 
     @property
     def state(self) -> EkfState | None:
+        """The filter state. After ``process()`` it aliases the frame
+        program's live carry, which the next frame updates in place."""
         return None if self._carry is None else self._carry[0]
+
+    # -- the per-frame functions (the reference's fused and boot) ----------
+
+    def boot_fn(self, intensity, xyz, conf, draws: SlamDraws | None = None,
+                generator: torch.Generator | None = None):
+        """The bootstrap frame, eagerly: device frames [H, W], [H, W, 3],
+        [H, W] → (state, step, feats, t, q)."""
+        draws = draws if draws is not None else SlamDraws(StepDraws())
+        feats = _frame(self._extract(intensity[None], xyz[None],
+                                     conf[None]), 0)
+        state = bootstrap_state(
+            self.cam, feats, self.cfg, self.n_landmarks, xyz_img=xyz,
+            image=intensity if self._needs_image else None,
+            plane_gumbel=draws.plane, add_gumbel=draws.boot_add,
+            generator=generator)
+        step = torch.ones((), dtype=torch.int32, device=intensity.device)
+        return state, step, feats, state.x[0:3], state.x[3:7]
+
+    def fused_fn(self, state: EkfState, step: torch.Tensor, prev: Features,
+                 intensity, xyz, conf, draws: StepDraws | None = None,
+                 generator: torch.Generator | None = None,
+                 host_step: int | None = None):
+        """One frame's whole pipeline, eagerly (the body the frame program
+        captures): frontend, ``slam_step``, step + 1 → (state, step + 1,
+        feats, t, q, stats, record). ``host_step`` decides the periodic
+        attitude update."""
+        feats = _frame(self._extract(intensity[None], xyz[None],
+                                     conf[None]), 0)
+        state, (stats, rec) = slam_step(
+            self.cam, state, feats, prev, step, self.cfg, draws=draws,
+            generator=generator,
+            image=intensity if self._needs_image else None,
+            xyz_img=xyz if self._needs_xyz else None, host_step=host_step)
+        return (state, step + 1, feats, state.x[0:3], state.x[3:7], stats,
+                rec)
 
     # -- streaming ----------------------------------------------------------
 
@@ -170,45 +246,95 @@ class OnlineSlam:
         overrides the generator: a SlamDraws (its ``plane`` and
         ``boot_add``) for the bootstrap frame, a StepDraws for the
         others."""
-        boot = self._carry is None
-        if not boot:
-            state, step, prev = self._primed()
         with self.timer.stage("dispatch"):
-            img, xyz_d, conf = self._upload(intensity, xyz, confidence)
-            feats = _frame(self._extract(img[None], xyz_d[None],
-                                         conf[None]), 0)
-            if boot:
-                boot = draws if draws is not None else SlamDraws(StepDraws())
-                state = bootstrap_state(
-                    self.cam, feats, self.cfg, self.n_landmarks,
-                    xyz_img=xyz_d,
-                    image=img if self._needs_image else None,
-                    plane_gumbel=boot.plane,
-                    add_gumbel=boot.boot_add, generator=self.generator)
-                step = torch.ones((), dtype=torch.int32, device=self.device)
-                res = StepResult(0, state.x[0:3], state.x[3:7], None)
+            if self._carry is None:
+                img, xyz_d, conf = self._upload(intensity, xyz, confidence)
+                state, step, feats, t, q = self.boot_fn(
+                    img, xyz_d, conf, draws, self.generator)
+                self._carry = (state, step, feats)
+                res = StepResult(0, t, q, None)
             else:
-                state, (stats, rec) = slam_step(
-                    self.cam, state, feats, prev, step, self.cfg,
-                    draws=draws, generator=self.generator,
-                    image=img if self._needs_image else None,
-                    xyz_img=xyz_d if self._needs_xyz else None,
-                    host_step=self.step_i)
-                self._records.append(StepRecord(*(x[None] for x in rec)))
-                step = step + 1
-                res = StepResult(self.step_i, state.x[0:3], state.x[3:7],
-                                 stats)
-            self._carry = (state, step, feats)
+                res = self._process_step(intensity, xyz, confidence, draws)
             if self.sync:
                 _synchronize(self.device)
         self._advance([res])
         return res
 
+    def _frame_program(self, shapes: tuple, draws):
+        state, step, prev = self._carry
+        key = shape_key(state, prev, tuple(draws or ())) + shapes
+        if key not in self.programs:
+            packing = Packing(step_outputs_like(state))
+            dev = self.device
+            bufs = dict(
+                state=empty_like_tree(state), step=torch.empty_like(step),
+                prev=empty_like_tree(prev),
+                frame=tuple(torch.empty(sh, dtype=torch.float32, device=dev)
+                            for sh in shapes),
+                draws=None if draws is None else StepDraws(
+                    *(empty_like_tree(f) for f in draws)),
+                packed=torch.empty(packing.nbytes, dtype=torch.uint8,
+                                   device=dev))
+            self.programs[key] = (StepProgram(
+                "OnlineSlam.process", bufs, dev, 1,
+                carry=("state", "step", "prev")), packing)
+        return self.programs[key]
+
+    def _frame_body(self, fit: bool, packing: Packing):
+        """The frame program's body, per variant: ``fused_fn`` on the
+        buffers, with a host index that fits the floor plane (0) or not
+        (1) standing in for the step's."""
+        def body(b, gens):
+            state, step, feats, t, q, stats, rec = self.fused_fn(
+                EkfState(*b["state"]), b["step"], Features(*b["prev"]),
+                *b["frame"], draws=b["draws"], generator=gens[0],
+                host_step=0 if fit else 1)
+            load((b["state"], b["prev"]), (state, feats))
+            b["step"].copy_(step)
+            packing.pack((t, q, stats, rec), b["packed"])
+
+        return body
+
+    def _process_step(self, intensity, xyz, confidence, draws):
+        """A frame after the bootstrap: into the frame program's buffers,
+        one run, its packed outputs into the next storage row."""
+        self._primed()
+        shapes = tuple(tuple(np.shape(a)) for a in (intensity, xyz,
+                                                    confidence))
+        prog, packing = self._frame_program(shapes, draws)
+        b = prog.buffers
+        load((b["state"], b["step"], b["prev"]), self._carry)
+        if draws is not None:
+            load(b["draws"], draws)
+        self._upload(intensity, xyz, confidence, out=b["frame"])
+        every = self.cfg.heading_update_every
+        fit = every > 0 and self.step_i % every == 0
+        prog.run((fit, _fast_math()), self._frame_body(fit, packing),
+                 [self.generator])
+        row = self._storage_row(packing.nbytes)
+        row.copy_(b["packed"])
+        t, q, stats, rec = packing.unpack(row)
+        self._records.append(StepRecord(*(x[None] for x in rec)))
+        self._carry = (EkfState(*b["state"]), b["step"],
+                       Features(*b["prev"]))
+        return StepResult(self.step_i, t, q, stats)
+
+    def _storage_row(self, nbytes: int) -> torch.Tensor:
+        """The next row of per-step storage (never reused)."""
+        if (self._store is None or self._store_used == STORE_ROWS
+                or self._store.shape[1] != nbytes):
+            self._store = torch.empty((STORE_ROWS, nbytes), dtype=torch.uint8,
+                                      device=self.device)
+            self._store_used = 0
+        self._store_used += 1
+        return self._store[self._store_used - 1]
+
     def process_chunk(self, intensity, xyz, confidence,
                       draws: StepDraws | None = None) -> list[StepResult]:
         """Feed C frames (host arrays with leading axis C) as one
-        frontend batch and one scan over the EKF steps. Must follow the bootstrap frame, which
-        process() takes. ``draws``: stacked StepDraws for the C steps."""
+        frontend batch and ``scan_steps``' program (one replay per step).
+        Must follow the bootstrap frame, which process() takes.
+        ``draws``: stacked StepDraws for the C steps."""
         if self._carry is None:
             raise RuntimeError("bootstrap with process() before chunks")
         state, step, prev = self._primed()
@@ -300,17 +426,23 @@ class OnlineSlam:
         return path
 
     def resume(self, path: str) -> None:
-        """Restore state, step and generator state from a snapshot. The
-        previous frame's features are not checkpointed: call prime() with
-        frame step_i − 1 before the next process()."""
+        """Restore state, step and generator state from a snapshot, copied
+        into the live carry where there is one. The previous frame's
+        features are not checkpointed: call prime() with frame step_i − 1
+        before the next process()."""
         from pre3_tpu_torch.utils.checkpoint import load_state
 
         state, self.step_i, gen_state, _ = load_state(path, self.device)
         if gen_state is not None:
             self.generator.set_state(gen_state)
-        step = to_device(torch.tensor(self.step_i, dtype=torch.int32),
-                         self.device)
-        self._carry = (state, step, None)
+        step = torch.full((), self.step_i, dtype=torch.int32,
+                          device=self.device)
+        if self._carry is None:
+            self._carry = (state, step, None)
+            return
+        live_state, live_step, _ = self._carry
+        load((live_state, live_step), (state, step))
+        self._carry = (live_state, live_step, None)
 
     def prime(self, intensity, xyz, confidence) -> None:
         """Set the previous frame's features after resume()."""

@@ -14,8 +14,13 @@ mechanisms:
    stages, not frames: the frontend of chunk c+1 is issued before the
    backend ``scan_steps`` of chunk c. On the card it runs on a side
    stream and the backend waits on its event, so the card interleaves
-   the two; the host issues the next chunk's frontend before it walks the
-   current chunk's steps.
+   the two; the host issues the next chunk's frontend before it replays
+   the current chunk's steps (``scan_steps``' step program: one graph
+   replay per step). The first chunk captures its program inside the
+   loop (one program serves every chunk length); the capture is
+   thread-local and waits for the device as it begins, so the side
+   stream's frontend finishes first and may allocate freely on it
+   (``utils/graphs.py``).
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ checkout, with the other versions' sources in a directory:
     python3 -m pre3_tpu_torch.utils.compare_kernels build/old --rounds 2
 
 Every ``ransac_score*.cu`` and ``match_stream*.cu`` there is a version,
-with the same C launch interface as the checkout's; each is built with
-the package's nvcc flags beside its source.
+with the same C launch interface as the checkout's (the launch counter,
+the last argument, is passed null: a version without it ignores it);
+each is built with the package's nvcc flags beside its source.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from pre3_tpu_torch.utils.cuda_build import NVCC_FLAGS, build_library, find_nvcc
 
 ROOT = Path(__file__).resolve().parents[2]
 P, I = ctypes.c_void_p, ctypes.c_int
-K1_ARGS = [P] * 6 + [I] * 3 + [P] * 3
-K2_ARGS = [P] * 3 + [I] * 4 + [P] * 4
+K1_ARGS = [P] * 6 + [I] * 3 + [P] * 4
+K2_ARGS = [P] * 3 + [I] * 4 + [P] * 5
 
 
 def _build(src: Path) -> ctypes.CDLL:
@@ -56,7 +57,8 @@ def _k1(lib, args):
     def launch():
         rc = lib.ransac_score_launch(*ptrs, 1, b, n, support.data_ptr(),
                                      err.data_ptr(),
-                                     torch.cuda.current_stream().cuda_stream)
+                                     torch.cuda.current_stream().cuda_stream,
+                                     None)
         if rc:
             raise RuntimeError(f"ransac_score launch failed: cudaError {rc}")
         return support, err
@@ -73,7 +75,7 @@ def _k2(lib, d1, d2, valid2):
         rc = lib.match_stream_launch(
             d1.data_ptr(), d2.data_ptr(), valid2.data_ptr(), 1, n1, n2, d,
             idx.data_ptr(), best.data_ptr(), second.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, None)
         if rc:
             raise RuntimeError(f"match_stream launch failed: cudaError {rc}")
         return idx, best, second

@@ -7,17 +7,21 @@ B independent corridor sequences, distinct scenes and trajectories
 chunks) and ``run_slam_batched`` at K=256 with
 ``SlamConfig(min_measured=50, max_update_slots=96)``: each step is one
 ``torch.func.vmap(slam_step)`` over the B sequences, each sequence with
-its own ``torch.Generator``. The reference maps its frontend over the
+its own ``torch.Generator``, captured once into a CUDA graph and
+replayed (``utils/graphs.py``). The reference maps its frontend over the
 sequences and vmaps its jitted ``run_slam``.
 
 For each B, after one warm-up run: aggregate and per-sequence frames/s
 (frontend + SLAM, host clock around a synchronize, median of ``--reps``),
 the frontend's share, host ms per step (``run_slam_batched``'s time over
 F−1 steps, the B bootstraps included), ATE mean and max (no alignment),
-K1 and K2 launches per step, the peak device memory, and from one step
-profiled alone (``torch.profiler``, on the last timed run's features) the
-kernel launches and device busy time per step and the idle share, 1 −
-busy / host ms per step. On the CPU the device figures are not
+K1 and K2 launches per step (counted on the device by the kernels), the
+peak device memory of the last timed run's frontend and SLAM stages,
+and from the F−1 steps profiled after their bootstraps
+(``scan_steps_batched`` on the last timed run's features,
+``torch.profiler``) the host-issued launches (copies, draw runs, a graph
+replay per step) and device busy time per step and that run's idle
+share, 1 − busy / its wall time. On the CPU the device figures are not
 measured.
 
     python3 -m pre3_tpu_torch.utils.measure_batch [n_frames] [K] \\
@@ -39,8 +43,7 @@ import torch
 
 from pre3_tpu_torch.data.synthetic import render_sequence
 from pre3_tpu_torch.ekf.slam import (
-    SlamConfig, bootstrap_batched, draw_batched, run_slam_batched,
-    slam_step_batched,
+    SlamConfig, bootstrap_batched, run_slam_batched, scan_steps_batched,
 )
 from pre3_tpu_torch.eval.trajectory import ate_rmse
 from pre3_tpu_torch.frontend.pipeline import (
@@ -90,50 +93,59 @@ def sync_checked(on: bool):
 
 
 def pipeline(images, n_landmarks: int, seed: int, cam=None,
-             check: bool = False):
+             check: bool = False, peaks: dict | None = None):
     """Frontend over the B·F frames, then run_slam_batched: (trajectory,
     features, frontend seconds, SLAM seconds), each time on the host
     clock around a synchronize. With ``check`` a host sync inside either
-    call raises."""
+    call raises. On the card ``peaks`` gets each stage's peak device
+    memory in MiB (``frontend``, ``slam``)."""
     cam = sr4000_camera() if cam is None else cam
     device = images[0].device
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    peak = cuda and peaks is not None
+
+    def stage_peak(name):
+        if peak:
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+            torch.cuda.reset_peak_memory_stats()
+
     sync()
+    stage_peak("before")
     t0 = time.perf_counter()
     with sync_checked(check and cuda):
         feats = extract_sequences(extract_features_sift, *images)
     sync()
     t1 = time.perf_counter()
+    stage_peak("frontend")
     gens = generators(len(images[0]), seed, device)
     with sync_checked(check and cuda):
         out = run_slam_batched(cam, feats, CFG, n_landmarks=n_landmarks,
                                generators=gens)
     sync()
-    return out, feats, t1 - t0, time.perf_counter() - t1
+    t2 = time.perf_counter()
+    stage_peak("slam")
+    return out, feats, t1 - t0, t2 - t1
 
 
 def profile_step(feats: Features, n_landmarks: int):
-    """(launches, device busy ms) of one batched step, profiled alone:
-    the bootstraps on frame 0 of ``feats`` ([S, F, ...]) made first, then
-    step 1 (its draws and its ``slam_step_batched``) under the
-    profiler."""
+    """(launches, device busy ms, idle share) per batched step: the F−1
+    steps of ``run_slam_batched`` on ``feats`` ([S, F, ...]) after their
+    bootstraps (``scan_steps_batched``: the per-call and per-block
+    copies, the draw runs and a graph replay per step), profiled; the
+    idle share is that run's, 1 − busy / its wall time."""
     from pre3_tpu_torch.utils.profile_slice import _profiled
 
     cam = sr4000_camera()
-    n_seq, n_feats, dev = feats.uv.shape[0], feats.uv.shape[2], feats.uv.device
-    frame = [Features(*(x[:, i] for x in feats)) for i in (0, 1)]
-    gens = generators(n_seq, 0, dev)
-    state = bootstrap_batched(cam, frame[0], CFG, n_landmarks,
-                              generators=gens)
-    step = torch.ones((), dtype=torch.int32, device=dev)
-
-    def one_step():
-        d = draw_batched(CFG, n_feats, n_landmarks, gens, dev)
-        slam_step_batched(cam, state, frame[1], frame[0], step, CFG, d)
-
-    launches, busy_us, _ = _profiled(one_step)
-    return launches, busy_us / 1e3
+    n_seq, n_frames = feats.uv.shape[:2]
+    gens = generators(n_seq, 0, feats.uv.device)
+    state = bootstrap_batched(cam, Features(*(x[:, 0] for x in feats)), CFG,
+                              n_landmarks, generators=gens)
+    steps = n_frames - 1
+    launches, busy_us, wall, _ = _profiled(lambda: scan_steps_batched(
+        cam, state, feats, CFG, n_landmarks, generators=gens))
+    return (launches / steps, busy_us / 1e3 / steps,
+            1.0 - busy_us / 1e6 / wall)
 
 
 def measure(images, gts, n_landmarks: int = N_LANDMARKS, reps: int = 3,
@@ -148,14 +160,12 @@ def measure(images, gts, n_landmarks: int = N_LANDMARKS, reps: int = 3,
     cuda = images[0].device.type == "cuda"
     if warmup:
         pipeline(images, n_landmarks, seed=0)
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    walls, fronts, slams = [], [], []
+    walls, fronts, slams, peaks = [], [], [], {}
     for r in range(reps):
         score_hypotheses.launches = match_descriptors_k2.launches = 0
         out, feats, t_fe, t_slam = pipeline(
             images, n_landmarks, seed=r + 1,
-            check=sync_check and r == reps - 1)
+            check=sync_check and r == reps - 1, peaks=peaks)
         walls.append(t_fe + t_slam)
         fronts.append(t_fe)
         slams.append(t_slam)
@@ -172,13 +182,16 @@ def measure(images, gts, n_landmarks: int = N_LANDMARKS, reps: int = 3,
         ates=ates, k1_per_step=k1 / steps, k2_per_step=k2 / steps,
         k1=k1, k2=k2, valid_per_frame=float(
             feats.valid.sum(-1).float().mean()),
-        peak_mib=None, launches_per_step=None, busy_ms_per_step=None,
-        idle_share=None, trajectory=out)
+        peak_mib=None, frontend_peak_mib=None, slam_peak_mib=None,
+        launches_per_step=None, busy_ms_per_step=None, idle_share=None,
+        trajectory=out)
     if cuda:
-        res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
-        launches, busy = profile_step(feats, n_landmarks)
+        res.update(peak_mib=max(peaks["frontend"], peaks["slam"]),
+                   frontend_peak_mib=peaks["frontend"],
+                   slam_peak_mib=peaks["slam"])
+        launches, busy, idle = profile_step(feats, n_landmarks)
         res.update(launches_per_step=launches, busy_ms_per_step=busy,
-                   idle_share=1.0 - busy / res["host_ms_per_step"])
+                   idle_share=idle)
     return res
 
 
@@ -197,7 +210,9 @@ def describe(res: dict) -> str:
             f"{fmt('launches_per_step', '.1f')}; device busy "
             f"{fmt('busy_ms_per_step', '.3f', ' ms')} per step; idle share "
             f"{fmt('idle_share', '.4f')}; peak memory "
-            f"{fmt('peak_mib', '.1f', ' MiB')}")
+            f"{fmt('peak_mib', '.1f', ' MiB')} (frontend "
+            f"{fmt('frontend_peak_mib', '.1f', ' MiB')}, SLAM "
+            f"{fmt('slam_peak_mib', '.1f', ' MiB')}, the last timed run)")
 
 
 def main(argv=None) -> list[dict]:

@@ -17,18 +17,23 @@ points, noise 0.004, 1.5 cm per frame) cut to ``--frames`` frames:
             ``matcher_problem`` inputs).
 
 For each: host time per frame unprofiled (host clock around a
-synchronize, median of ``--reps``), and from one profiled run the kernel
-launches per frame (runtime launch calls), the device busy time per frame
-(kernels, copies and fills on the card) and the device's idle share,
-1 − busy / unprofiled time. Then the kernels that take the most device
-time in the last EKF part profiled. Run it from the root of a checkout:
+synchronize, median of ``--reps``), and from one profiled run the
+host-issued launches per frame (kernel and graph launches, copies,
+memsets), the device busy time per frame (kernels, copies and fills on
+the card) and the device's idle share, 1 − busy / the profiled run's own
+wall time. Then
+the kernels that take the most device time in the last EKF part
+profiled. ``run_slam`` and ``OnlineSlam`` replay their step programs
+(``utils/graphs.py``): the first ``run_slam`` of a config captures its
+program, and each ``online`` run's bootstrap and first frame (its
+capture) are set-up, outside the timed and profiled frames. Run it from
+the root of a checkout:
 
     python3 -m pre3_tpu_torch.utils.profile_slice --frames 48 \
         [--parts frontend,run_slam,online,ncc,wrappers]
 
-At 48 frames it takes ~14 minutes on an H100, most of it the profiler
-collecting ~5000 launches per EKF step; the default 24 frames, about
-half.
+Eager, before the step programs, 48 frames took ~14 minutes on an
+H100, most of it the profiler collecting ~5000 launches per EKF step.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from pre3_tpu_torch.data.synthetic import render_sequence
 from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
@@ -55,8 +60,11 @@ from pre3_tpu_torch.ops.matching import match_descriptors_k2
 from pre3_tpu_torch.ops.ransac_score import score_hypotheses
 from pre3_tpu_torch.runtime.online import OnlineSlam
 
+# What the host issues to the card: kernel launches, graph launches (a
+# replayed step program is one) and copies and memsets.
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-            "cuLaunchKernelEx")
+            "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+            "cudaMemsetAsync")
 
 
 def _wall(fn, reps: int) -> float:
@@ -71,28 +79,63 @@ def _wall(fn, reps: int) -> float:
     return statistics.median(out)
 
 
-def _profiled(fn):
-    """(launch calls, device busy µs, key averages) of one run of fn."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def _profiled(fn, warm=None, between=None):
+    """(launch calls, device busy µs, wall s, key averages) of one run of
+    fn, in one profiler window: the profiler starts in a warm-up step
+    that is not kept (``warm()``, by default a fill; then ``between()``)
+    so that the window's first kernels are recorded, and the window's
+    wall time runs from a synchronize before fn to one after it, so
+    busy / wall is the device's busy share of that window."""
+    marker = torch.zeros(1, device="cuda")
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: kept.append(p.key_averages())
+                 ) as prof:
+        if warm is None:
+            marker.fill_(1.0)
+        else:
+            warm()
+        torch.cuda.synchronize()
+        if between is not None:
+            between()
+        prof.step()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
+        wall = time.perf_counter() - t0
+        prof.step()
+    avgs = kept[-1]
     launches = sum(a.count for a in avgs if a.key in LAUNCHES)
-    busy = sum(a.self_device_time_total for a in avgs
-               if a.device_type == DeviceType.CUDA)
-    return launches, busy, avgs
+    busy = sum(a.self_device_time_total for a in device_ops(avgs))
+    return launches, busy, wall, avgs
 
 
-def report(name: str, fn, n: int, reps: int):
-    wall = _wall(fn, reps)
-    launches, busy_us, avgs = _profiled(fn)
+def device_ops(avgs):
+    """The key averages of work on the card: kernels, copies and fills
+    (not the profiler's own step span, which it also lists on the
+    device)."""
+    return [a for a in avgs if a.device_type == DeviceType.CUDA
+            and not a.key.startswith("ProfilerStep")]
+
+
+def report(name: str, fn, n: int, reps: int, setup=None):
+    """Time ``fn`` (``setup()`` makes it, untimed, where given: a fresh
+    one per run) and profile one more run."""
+    make = setup or (lambda: fn)
+    walls = []
+    for _ in range(reps):
+        run = make()
+        walls.append(_wall(run, 1))
+    wall = statistics.median(walls)
+    launches, busy_us, window_s, avgs = _profiled(make())
     busy = busy_us / 1e3 / n
     per = 1e3 * wall / n
-    idle = 1.0 - busy / per if per > 0 else float("nan")
+    idle = 1.0 - busy_us / 1e6 / window_s
     print(f"[{name}] {n} frames: host {per:.3f} ms per frame unprofiled "
           f"(median of {reps}); launches {launches / n:.1f} per frame; "
-          f"device busy {busy:.4f} ms per frame; idle share {idle:.4f}",
+          f"device busy {busy:.4f} ms per frame; idle share {idle:.4f} "
+          f"(of the profiled run, {1e3 * window_s / n:.3f} ms per frame)",
           flush=True)
     return avgs
 
@@ -146,8 +189,9 @@ def main() -> None:
     cam = sr4000_camera()
     cfg = SlamConfig(min_measured=50, max_update_slots=96)
     feats = extract_features_sift(*im)
-    # warm-up: the kernels' first launches, cuBLAS/cuDNN plans
-    run_slam(cam, type(feats)(*(x[:8] for x in feats)), cfg, n_landmarks=256,
+    # warm-up: the kernels' first launches, cuBLAS/cuDNN plans, the step
+    # program's capture
+    run_slam(cam, feats, cfg, n_landmarks=256,
              generator=torch.Generator("cuda").manual_seed(0))
 
     avgs = None
@@ -162,25 +206,33 @@ def main() -> None:
             args.reps)
 
     def online():
+        """A fresh OnlineSlam past its bootstrap and first frame (which
+        captures its frame program), and the call that streams the
+        remaining frames."""
         slam = OnlineSlam(cam, cfg=SlamConfig(min_measured=50),
                           n_landmarks=64, extractor="sift")
-        for i in range(n):
+        for i in range(2):
             slam.process(host[0][i], host[1][i], host[2][i])
+        return lambda: [slam.process(host[0][i], host[1][i], host[2][i])
+                        for i in range(2, n)]
 
     if "online" in parts:
-        report("online", online, n, args.reps)
+        report("online", None, n - 2, args.reps, setup=online)
     if "ncc" in parts:
         fast = extract_features(*im, threshold=0.05, max_features=256)
         ncc_cfg = cfg._replace(matcher="ncc_warp", match_ratio=1.3)
-        avgs = report("ncc", lambda: run_slam(
-            cam, fast, ncc_cfg, n_landmarks=256,
-            generator=torch.Generator("cuda").manual_seed(1), images=im[0],
-            xyz_imgs=im[1]), n - 1, args.reps)
+
+        def ncc():
+            return run_slam(cam, fast, ncc_cfg, n_landmarks=256,
+                            generator=torch.Generator("cuda").manual_seed(1),
+                            images=im[0], xyz_imgs=im[1])
+
+        ncc()  # the capture
+        avgs = report("ncc", ncc, n - 1, args.reps)
     if avgs is None:
         return
 
-    kernels = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
-                     key=lambda a: -a.self_device_time_total)
+    kernels = sorted(device_ops(avgs), key=lambda a: -a.self_device_time_total)
     total = sum(a.self_device_time_total for a in kernels)
     last = "ncc" if "ncc" in parts else "run_slam"
     print(f"[{last}] top {args.top} of {len(kernels)} device ops by time "

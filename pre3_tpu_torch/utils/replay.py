@@ -8,7 +8,9 @@ masked state counters (the FeaturePerformance/ dumps of
 mono_slam.m:290-313).
 
 The reference replays bit for bit because every draw flows from the saved
-PRNG key, split once per replayed step. Here a replayed step's draws are
+PRNG key, split once per replayed step. Here the replayed steps are
+``scan_steps``' program (one graph replay per step on the card), which
+loads the checkpoint's state into its carry. Here a replayed step's draws are
 injected (``draws``, the same stacked ``StepDraws`` a ``run_slam`` takes)
 or come from the generator state the checkpoint holds. A checkpoint the
 JAX package wrote holds a threefry key, which cannot seed a

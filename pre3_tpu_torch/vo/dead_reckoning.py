@@ -1,11 +1,12 @@
 """RANSAC dead-reckoning visual odometry over a sequence.
 
 Port of ``pre3_tpu/vo/dead_reckoning.py``. The reference chains the
-frame-to-frame fits with one ``lax.scan``; here it is a Python loop over
-frame pairs that never reads a value back to the host, so every launch of
-the sequence is queued without waiting on the card. Failure semantics are
-the reference's: a pair without a valid solution contributes identity
-motion.
+frame-to-frame fits with one jitted ``lax.scan``; here each pair is one
+step of a step program (``utils/graphs.py``): on the card one replay of
+a captured CUDA graph (K2, the Gumbel top-k sampling, Kabsch, K1, the
+refit and the pose chaining), eager on the CPU. Nothing is read back to
+the host. Failure semantics are the reference's: a pair without a valid
+solution contributes identity motion.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.quaternion import qnormalize, qprod, qrotate, r2q
 from pre3_tpu_torch.geometry.se3 import Pose
 from pre3_tpu_torch.ops.matching import match_descriptors_auto
+from pre3_tpu_torch.utils.graphs import (
+    STAGE_ROWS, Packing, StepProgram, empty_like_tree, load, program,
+    shape_key,
+)
 from pre3_tpu_torch.vo.covariance import vo_covariance
 from pre3_tpu_torch.vo.ransac import ransac_rigid
 
@@ -79,6 +84,32 @@ class Trajectory(NamedTuple):
     n_inliers: torch.Tensor  # [F] int32
 
 
+def _pair_body(batch: int, ratio: float, min_inliers: int, pin: Packing,
+               pout: Packing):
+    """One pair of ``run_sequence`` over a program's buffers: frame i+1
+    and the pair's noise from the input row, frame i and the pose of
+    frame i from the carry, ``vo_pair``, the chained pose of frame i+1
+    into the carry and, with the pair's ok and inliers, into the output
+    row; frame i+1 into the carry."""
+
+    def body(b, gens):
+        cur, gumbel = pin.unpack(b["inp"])
+        s = vo_pair(Features(*b["prev"]), Features(*cur), gumbel=gumbel,
+                    generator=gens[0] if gens else None, batch=batch,
+                    ratio=ratio, min_inliers=min_inliers)
+        t_w, q_w = b["t"], b["q"]
+        dt = torch.where(s.ok, s.delta.t, torch.zeros_like(t_w))
+        dq = torch.where(s.ok, s.delta.q, b["unit_q"])
+        t_new = t_w + qrotate(q_w, dt)
+        q_new = qnormalize(qprod(q_w, dq))
+        pout.pack((t_new, q_new, s.ok, s.n_inliers), b["out"])
+        t_w.copy_(t_new)
+        q_w.copy_(q_new)
+        load(b["prev"], cur)
+
+    return body
+
+
 def run_sequence(
     feats: Features,  # stacked: every field has leading axis F
     gumbel: torch.Tensor | None = None,
@@ -91,7 +122,11 @@ def run_sequence(
 
     gumbel [F-1, batch, K]: RANSAC's sampling noise for each pair, or a
     ``generator`` on the features' device to draw it. An invalid pair
-    keeps the previous pose (identity motion step).
+    keeps the previous pose (identity motion step). The pairs are one
+    step program's runs (see the module docstring), keyed by one pair's
+    shapes: per pair the host copies frame i+1 and its noise, packed
+    ``STAGE_ROWS`` pairs at a time, into the program's input row, and
+    the output row into the call's own storage.
     """
     n_frames, k = feats.valid.shape
     device, dtype = feats.xyz.device, feats.xyz.dtype
@@ -101,31 +136,40 @@ def run_sequence(
         raise ValueError(
             f"gumbel must have shape {(n_frames - 1, batch, k)}, "
             f"got {tuple(gumbel.shape)}")
+    gens = [] if gumbel is not None else [generator]
+    pick = lambda x, lo, hi: None if x is None else x[lo:hi]  # noqa: E731
+    one = (Features(*(x[0] for x in feats)),
+           None if gumbel is None else gumbel[0])
+    pin = Packing(one)
+    origin = Trajectory(
+        t=torch.zeros(3, dtype=dtype, device=device),
+        q=torch.zeros(4, dtype=dtype, device=device),
+        ok=torch.ones((), dtype=torch.bool, device=device),
+        n_inliers=torch.zeros((), dtype=torch.int32, device=device))
+    origin.q[0].fill_(1.0)  # `q[0] = 1.0` would be a synced copy
+    pout = Packing(tuple(origin))
 
-    t_w = torch.zeros(3, dtype=dtype, device=device)
-    q_w = torch.zeros(4, dtype=dtype, device=device)
-    q_w[0].fill_(1.0)  # a kernel argument: `q_w[0] = 1.0` would be a synced copy
-    zero_t, unit_q = t_w, q_w
-    ts, qs, oks, nis = [t_w], [q_w], [], []
-    for i in range(1, n_frames):
-        prev = Features(*(x[i - 1] for x in feats))
-        cur = Features(*(x[i] for x in feats))
-        s = vo_pair(prev, cur,
-                    gumbel=None if gumbel is None else gumbel[i - 1],
-                    generator=generator, batch=batch, ratio=ratio,
-                    min_inliers=min_inliers)
-        dt = torch.where(s.ok, s.delta.t, zero_t)
-        dq = torch.where(s.ok, s.delta.q, unit_q)
-        t_w = t_w + qrotate(q_w, dt)
-        q_w = qnormalize(qprod(q_w, dq))
-        ts.append(t_w)
-        qs.append(q_w)
-        oks.append(s.ok)
-        nis.append(s.n_inliers)
-    return Trajectory(
-        t=torch.stack(ts),
-        q=torch.stack(qs),
-        ok=torch.stack([torch.ones((), dtype=torch.bool, device=device), *oks]),
-        n_inliers=torch.stack(
-            [torch.zeros((), dtype=torch.int32, device=device), *nis]),
-    )
+    def make():
+        bufs = dict(prev=empty_like_tree(one[0]), t=torch.empty_like(origin.t),
+                    q=torch.empty_like(origin.q), unit_q=origin.q.clone(),
+                    inp=pin.rows(device=device), out=pout.rows(device=device))
+        return StepProgram("run_sequence", bufs, device, len(gens),
+                           carry=("prev", "t", "q"))
+
+    prog = program(("run_sequence", batch, ratio, min_inliers, len(gens),
+                    shape_key(one)), make)
+    b = prog.buffers
+    load((b["prev"], b["t"], b["q"]), (one[0], origin.t, origin.q))
+    body = _pair_body(batch, ratio, min_inliers, pin, pout)
+    n_pairs = n_frames - 1
+    in_rows = pin.rows(min(n_pairs, STAGE_ROWS), device=device)
+    out_rows = pout.rows(n_pairs, device=device)
+    for lo in range(0, n_pairs, STAGE_ROWS):
+        hi = min(n_pairs, lo + STAGE_ROWS)
+        rows = in_rows[:hi - lo]
+        pin.pack((Features(*(x[lo + 1:hi + 1] for x in feats)),
+                  pick(gumbel, lo, hi)), rows)
+        prog.run_rows([None] * (hi - lo), lambda _: body, rows,
+                      out_rows[lo:hi], gens)
+    return Trajectory(*(torch.cat([o[None], x]) for o, x in
+                        zip(origin, pout.unpack(out_rows))))

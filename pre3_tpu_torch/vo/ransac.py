@@ -78,8 +78,11 @@ def ransac_rigid(
         d2 = torch.sum(p2 * p2, dim=-1)
         d2 = torch.where(valid, d2, torch.inf)
         support_threshold = 0.001 * torch.sqrt(torch.amin(d2))
-    thr = torch.as_tensor(support_threshold, dtype=torch.float32,
-                          device=device)
+    if isinstance(support_threshold, torch.Tensor):
+        thr = support_threshold.to(device=device, dtype=torch.float32)
+    else:  # a fill on the device: no host copy, no sync
+        thr = torch.full((), float(support_threshold), dtype=torch.float32,
+                         device=device)
     if gumbel is None:
         if generator is None:
             raise ValueError("ransac_rigid needs gumbel noise or a generator")

@@ -205,6 +205,11 @@ def test_extract_features_sift_matches_reference_fast(monkeypatch, frames):
     DESC_MEDIAN; the depth lift's validity equal."""
     monkeypatch.setenv("PRE3_SIFT_FAST_MATH", "1")
     got = textract(*(_t(a) for a in frames), keypoints_per_octave=KPO)
+    # the reference's extract_features_sift is jitted at module level: a
+    # trace of it at these static arguments from an earlier test in this
+    # process (the exact branch, say) would be reused inside the fresh
+    # jit below, whatever the variable now says
+    jax.clear_caches()
     fe = jax.jit(lambda i, x, c: jextract(i, x, c, keypoints_per_octave=KPO))
     errs = []
     for f in range(2):
