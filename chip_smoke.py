@@ -76,14 +76,16 @@ device, and imports nothing of JAX. Phases:
  14. ncc-slice  — config #2 over the 256-frame corridor at K=256:
                   frames/s, K1 and K2 launches (VO only), n_ic/n_li, ATE;
  15. ba         — config #4 on the SIFT slice's last trajectory: M, L,
-                  observations, cost, BA time, launches and device time
-                  per LM iteration, post-BA ATE; the same problem solved
-                  on the CPU;
+                  observations, cost, BA time (ba_ms_total), launches and
+                  device time per LM iteration of the BA program, post-BA
+                  ATE; the same problem solved on the CPU;
  16. loop       — bench.py's out-and-back scene through the SIFT
                   run_slam, the keyframe BA, keyframe tracks (K2 per
                   keyframe) and mined loop closures (K2 + K1 per pair):
                   SLAM and post-BA ATE; the keyframe tracks built on the
-                  card and on the CPU: their spawn masks and post-BA ATEs;
+                  card and on the CPU (by the eager loop of their body,
+                  recorded keyframe by keyframe): their spawn masks and
+                  post-BA ATEs;
  17. dat        — the native decoder built from native/sr4000_loader.cc,
                   against the numpy parser, and its decode rates; then
                   examples/run_dat_pipeline.py's chain (48 frames as .dat
@@ -150,9 +152,22 @@ device, and imports nothing of JAX. Phases:
                   checks. Then the graphed run_slam's peak memory at 32
                   and 256 frames, the eager loop's at 16 and 48, what
                   one eager step's kept outputs hold, and the SIFT
-                  frontend's peak at 32 and 256 frames.
+                  frontend's peak at 32 and 256 frames;
+ 25. backend-graphs — config #4's programs, each against the eager loop
+                  of its body on the card, bit for bit: bundle_adjust on
+                  phase 15's problem and on phase 16's merged one (10 LM
+                  iterations), build_tracks on the loop scene's 64
+                  keyframes, the loop mining on its candidate pairs (the
+                  same generator seed), the cold find_keyframes_vo of
+                  phase 18's example. Per case: K1/K2 on the device
+                  counters (0 per LM iteration, one K2 per keyframe, one
+                  K1 and one K2 per pair); host ms, host-issued launches,
+                  device busy and idle share per step, graphed and eager;
+                  capture seconds and pools; launches within their limits.
 
-The drivers replay one captured CUDA graph per step (K1 and K2 inside);
+The drivers, bundle_adjust's LM iterations, the keyframe tracks and the
+loop-mining and keyframe-search pairs replay one captured CUDA graph per
+step (K1 and K2 inside);
 a program's first call captures it, waiting for the device once, and
 the phases that time a driver run it once untimed first. K1 and K2 count
 their own runs on the device (a replay counts; a program's warm-up,
@@ -308,6 +323,7 @@ DAT_CHECK_FRAMES = 8  # decoded natively and by numpy, held to 1 ulp
 # the CPU gives VO 0.0427 m and post-BA 0.0174 m; the smoke holds both
 # below 0.1 m (a sanity bound: the run has no JAX band).
 OFFLINE_ATE_MAX = 0.1
+OFFLINE_BATCH = 512  # the example's find_keyframes_vo(batch=)
 # Phase 19: 16 frames, K=64, snapshot after step 7.
 REPLAY_FRAMES, REPLAY_SNAPSHOT = 16, 7
 # Phase 20: card vs CPU on the same inputs. tests/test_torch_pnp_icp.py
@@ -1534,7 +1550,7 @@ def loop_phase():
     keyframe tracks merged into the bridge (K2 once per keyframe) and the
     mined keyframe loop closures (K2 + K1 once per candidate pair tried)
     merged into its factors, and BA again. Returns the launches of the
-    tracks and of the mining."""
+    tracks and of the mining, the merged problem and phase 25's inputs."""
     from pre3_tpu_torch.backend.loop_detect import (
         merge_lcp, mine_keyframe_loop_closures, pairs_to_try,
     )
@@ -1608,17 +1624,23 @@ def loop_phase():
             raise AssertionError(f"loop {name} ATE {ate:.4f} m outside "
                                  f"{center} ± {half}")
     zero_rows_phase(out, feats, ks, gt)
-    return k2_tracks, (k1_mine, k2_mine), merged
+    # phase 25's inputs: the keyframes and table size the tracks ran with
+    backend = dict(kf_feats=kf_feats, kf_t=out.t[idx], kf_q=out.q[idx],
+                   kf_valid=ks.valid, max_tracks=min(4 * l, 512),
+                   merged=merged)
+    return k2_tracks, (k1_mine, k2_mine), merged, backend
 
 
 def recorded_tracks(fn):
     """Run ``fn`` with backend/tracks.py's matcher and spawn mask
-    recorded: per keyframe, the table's active rows, each row's best
-    feature (index) and the spawn-blocking ``used`` mask."""
+    recorded, its tracks built by the eager loop of their body: per
+    keyframe, the table's active rows, each row's best feature (index)
+    and the spawn-blocking ``used`` mask."""
     from pre3_tpu_torch.backend import tracks
 
     rec = []
     match, used = tracks.match_descriptors_auto, tracks.used_features
+    build = tracks.build_tracks
 
     def match_rec(d1, d2, valid1=None, valid2=None, ratio=1.5):
         rec.append({"active": valid1.cpu()})
@@ -1629,11 +1651,15 @@ def recorded_tracks(fn):
         rec[-1].update(index=index.cpu(), used=out.cpu())
         return out
 
+    # the eager loop of build_tracks' body, whose reads a capture would
+    # refuse; phase 25 holds the program to it bit for bit
     tracks.match_descriptors_auto, tracks.used_features = match_rec, used_rec
+    tracks.build_tracks = eager_build_tracks
     try:
         result = fn()
     finally:
         tracks.match_descriptors_auto, tracks.used_features = match, used
+        tracks.build_tracks = build
     return result, rec
 
 
@@ -1844,16 +1870,18 @@ def offline_kf_phase(work: Path):
     the same work directory. The warm keyframe search reads every pair
     from VoCache: it launches neither kernel and returns the cold pass's
     keyframes, VO-call count and increments to the bit. Returns the
-    (K1, K2) launches of the keyframe search, cold and warm."""
+    (K1, K2) launches of the keyframe search, cold and warm, and the
+    features it searched (phase 25's input)."""
     from pre3_tpu_torch.examples import run_offline_keyframing as ex
 
     find = ex.find_keyframes_vo
-    counts = []
+    counts, feats = [], []
 
     def counted(*args, **kwargs):
         reset_launches()
         out = find(*args, **kwargs)
         counts.append(read_launches())
+        feats.append(args[0])
         return out
 
     ex.find_keyframes_vo = counted
@@ -1897,7 +1925,7 @@ def offline_kf_phase(work: Path):
         raise AssertionError("offline-kf: KeyFrames/ is incomplete")
     if not (cold["ate_vo"] < OFFLINE_ATE_MAX and cold["ate_ba"] < OFFLINE_ATE_MAX):
         raise AssertionError("offline-kf: ATE above the sanity bound")
-    return counts
+    return counts, feats[0]
 
 
 def replay_phase(work: Path):
@@ -3338,6 +3366,250 @@ def graphs_phase(images, im):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 25 (backend-graphs): config #4's programs (bundle_adjust,
+# build_tracks, the loop-mining pair, find_keyframes_vo's pair) each
+# replay one captured CUDA graph per step; each is held against an eager
+# loop of its body on the card, on phases 15, 16 and 18's inputs.
+# ---------------------------------------------------------------------------
+
+# Host-issued launches (kernels, graph launches, copies, fills), counted
+# by the profiler over one call: BA at most BACKEND_LAUNCHES_BA per LM
+# iteration (the problem's loads, cost0 and the result copy included),
+# the tracks at most BACKEND_LAUNCHES_STEP per keyframe, the loop pair and
+# the keyframe pair at most that per pair, not counting the one copy of
+# its output row to the host that reads the verdict (the reference reads
+# each pair's verdict too).
+BACKEND_LAUNCHES_BA = 5
+BACKEND_LAUNCHES_STEP = 10
+
+
+def eager_bundle_adjust(cam, prob, iters: int):
+    """bundle_adjust as a plain loop of its bodies (the initial cost, then
+    ``_lm_step``), the default weights and damping."""
+    from pre3_tpu_torch.backend import ba
+
+    terms = ba._terms(prob, 50.0, 20.0, 50.0, 0.0, 20.0, 50.0)
+    c0 = ba._problem_cost(cam, prob, terms, prob.kf_t, prob.kf_q,
+                          prob.points)
+    lam = torch.full((), 1e-3, dtype=c0.dtype, device=c0.device)
+    state, costs = (prob.kf_t, prob.kf_q, prob.points, lam, c0), [c0]
+    for _ in range(iters):
+        state = ba._lm_step(cam, prob, terms, True, *state)
+        costs.append(state[4])
+    return ba.BaResult(*state[:3], cost=torch.stack(costs))
+
+
+def eager_build_tracks(kf_feats, kf_t, kf_q, kf_valid, max_tracks=256,
+                       adds_per_frame=64, ratio=1.3, gate_px=25.0):
+    """build_tracks as a plain loop of ``track_step`` (the same
+    signature and result)."""
+    from pre3_tpu_torch.backend import tracks
+    from pre3_tpu_torch.frontend.pipeline import Features
+
+    dev, dt = kf_feats.xyz.device, kf_feats.xyz.dtype
+    table = tracks.TrackTable(
+        torch.zeros((max_tracks, kf_feats.desc.shape[-1]), dtype=dt,
+                    device=dev),
+        torch.zeros(max_tracks, dtype=torch.bool, device=dev),
+        torch.zeros((max_tracks, 3), dtype=dt, device=dev))
+    rows = []
+    for i in range(kf_feats.uv.shape[0]):
+        table, obs = tracks.track_step(
+            table, Features(*(x[i] for x in kf_feats)), kf_t[i], kf_q[i],
+            kf_valid[i], adds_per_frame, ratio, gate_px)
+        rows.append(obs)
+    return (*map(torch.stack, zip(*rows)), table)
+
+
+def eager_mine(kf_feats, kf_t, kf_valid, generator, max_tried=None):
+    """mine_keyframe_loop_closures as a plain loop of ``pair_fit`` over
+    pairs_to_try (the first ``max_tried`` of them, or all), reading each
+    verdict: (the mined arrays, pairs tried)."""
+    from pre3_tpu_torch.backend import loop_detect
+
+    side = lambda i: (kf_feats.desc[i], kf_feats.xyz[i],  # noqa: E731
+                      kf_feats.valid[i])
+    rows, tried = [], 0
+    for a, b in loop_detect.pairs_to_try(kf_t, kf_valid)[:max_tried]:
+        if len(rows) >= MINE_MAX_PAIRS:
+            break
+        tried += 1
+        _r, t, q, ok, _n, _e, cov = loop_detect.pair_fit(
+            side(a), side(b), generator=generator)
+        if bool(ok):
+            rows.append((a, b, t.cpu().numpy(), q.cpu().numpy(),
+                         loop_detect.sqrt_information(cov.cpu().numpy())))
+    if not rows:
+        return None, tried
+    a, b, t, q, info = zip(*rows)
+    return (np.asarray(a, np.int32), np.asarray(b, np.int32), np.stack(t),
+            np.stack(q), np.ones(len(a), np.float32), np.stack(info)), tried
+
+
+def eager_keyframe_search(feats, generator, batch: int):
+    """find_keyframes_vo (no cache) as a plain loop of vo_pair and motion,
+    reading each verdict: the same OfflineKeyframes."""
+    from pre3_tpu_torch.backend import keyframes
+    from pre3_tpu_torch.frontend.pipeline import Features
+
+    rot = float(np.radians(keyframes.ROT_THRESH_DEG))
+    frame = lambda i: Features(*(x[i] for x in feats))  # noqa: E731
+    last, idx = 0, [0]
+    dts, dqs = [np.zeros(3, np.float32)], [np.array([1.0, 0, 0, 0],
+                                                    np.float32)]
+    for i in range(1, feats.uv.shape[0]):
+        s = keyframes.vo_pair(frame(last), frame(i), generator=generator,
+                              batch=batch, min_inliers=8)
+        ang, dist = keyframes.motion(s.delta.t, s.delta.q)
+        if bool(s.ok) and (float(ang) >= rot or float(dist)
+                           >= keyframes.TRANS_THRESH_M):
+            idx.append(i)
+            dts.append(s.delta.t.cpu().numpy())
+            dqs.append(s.delta.q.cpu().numpy())
+            last = i
+    return keyframes.OfflineKeyframes(np.asarray(idx, np.int64),
+                                      np.stack(dts), np.stack(dqs),
+                                      feats.uv.shape[0] - 1)
+
+
+def as_tensors(tree):
+    """The tensors and arrays of a result, as CPU tensors (tree_gap's
+    input); ints and None dropped."""
+    from torch.utils._pytree import tree_leaves
+
+    return [torch.as_tensor(x).cpu() for x in tree_leaves(tree)
+            if isinstance(x, (torch.Tensor, np.ndarray))]
+
+
+def backend_case(name, run, eager, steps: int, unit: str, want, limit,
+                 verdict: int = 0):
+    """One program of config #4: ``run()`` (through the program; a first
+    call captures any variant not captured yet) against ``eager(steps)``,
+    the plain loop of its body, on the same inputs and draws, bit for bit.
+    K1/K2 on the device counters of the graphed and the eager runs
+    against ``want``; host ms per step of each (medians of 3 and of 1);
+    the graphed run profiled for host-issued launches per step (less
+    ``verdict`` host reads per step), device busy per step and idle
+    share, and the eager loop profiled over 1 and 2 steps, whose
+    difference is one eager step (a whole eager run holds tens of
+    thousands of launches, which the profiler takes minutes to list);
+    the capture seconds and pool of each variant the first call
+    captured. Returns a dict of the figures."""
+    from pre3_tpu_torch.utils.profile_slice import _profiled
+
+    def counted_run(fn):
+        """(fn's result, host seconds, K1/K2 on the device counters)."""
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_launches()
+
+    before = captured_now()
+    t_first = host_seconds(run)
+    caps = new_captures(before)
+    got, t_graph, counts = counted_run(run)
+    t_graph = statistics.median([t_graph] + [host_seconds(run)
+                                             for _ in range(2)])
+    launches, busy, wall, names, counted = profiled_launches(run)
+    ref, t_eager, eager_counts = counted_run(lambda: eager(steps))
+    (l1, b1, _, _), (l2, b2, w2, _) = (_profiled(lambda n=n: eager(n))
+                                       for n in (1, 2))
+    equal, gap = tree_gap(as_tensors(got), as_tensors(ref))
+    res = dict(name=name, equal=equal, gap=gap, k1=counts[0], k2=counts[1],
+               launches=launches / steps - verdict, busy_ms=busy / steps,
+               host_ms=1e3 * t_graph / steps, idle=1.0 - busy / wall,
+               eager_host_ms=1e3 * t_eager / steps,
+               eager_launches=l2 - l1 - verdict,
+               eager_busy_ms=(b2 - b1) / 1e3,
+               eager_idle=1.0 - b2 / 1e6 / w2, first_s=t_first,
+               captures=caps)
+    phase("backend-graphs", f"{name}: graphed vs eager bit-equal {equal} "
+          f"(max gap {gap:.3e}); per {unit}: graphed host "
+          f"{res['host_ms']:.4f} ms, launches {res['launches']:.2f}, device "
+          f"busy {res['busy_ms']:.4f} ms, idle share {res['idle']:.4f} (over "
+          f"{steps}); eager host {res['eager_host_ms']:.4f} ms (over {steps}),"
+          f" launches {res['eager_launches']:.2f}, device busy "
+          f"{res['eager_busy_ms']:.4f} ms (2 steps less 1), idle share "
+          f"{res['eager_idle']:.4f} (2 steps); launches less {verdict} "
+          f"verdict read per {unit}; whole call graphed {1e3 * t_graph:.2f} "
+          f"ms, eager {1e3 * t_eager:.2f} ms, first call {t_first:.2f} s; "
+          f"K1/K2 graphed {counts}, eager {eager_counts}, profiled {names} "
+          f"against the counters {counted}, want {want}; " + "; ".join(caps))
+    if not equal:
+        raise AssertionError(f"backend-graphs {name}: graphed and eager "
+                             f"differ (max gap {gap:.3e})")
+    want_names = dict(zip((K1_KERNEL, K2_KERNEL), want))
+    if counts != want or eager_counts != want or counted != want_names or (
+            any(names[k] == 0 for k, v in want_names.items() if v)):
+        raise AssertionError(f"backend-graphs {name}: K1/K2 {counts} "
+                             f"(eager {eager_counts}, profiled {names}, "
+                             f"counted {counted}), want {want}")
+    if res["launches"] > limit:
+        raise AssertionError(f"backend-graphs {name}: {res['launches']:.2f} "
+                             f"launches per {unit} (limit {limit})")
+    return res
+
+
+def backend_graphs_phase(prob15, loop, offline_feats):
+    """Phase 25: (a) bundle_adjust on phase 15's problem and (b) on phase
+    16's merged one (tracks, lc_lm, mined lcp with lcp_info); (c)
+    build_tracks on the loop scene's keyframes; (d) the loop mining on its
+    candidate pairs, the same generator seed for both runs; (e) the cold
+    find_keyframes_vo of phase 18's 24-frame example."""
+    from pre3_tpu_torch.backend.ba import bundle_adjust
+    from pre3_tpu_torch.backend.keyframes import find_keyframes_vo
+    from pre3_tpu_torch.backend.loop_detect import (
+        mine_keyframe_loop_closures,
+    )
+    from pre3_tpu_torch.backend.tracks import build_tracks
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils import graphs
+
+    graphs.clear()  # each case's first call captures its program here
+    cam = sr4000_camera()
+    gen = lambda seed: torch.Generator("cuda").manual_seed(seed)  # noqa
+    results = {}
+    for key, prob in (("ba15", prob15), ("ba16", loop["merged"])):
+        results[key] = backend_case(
+            f"bundle_adjust ({key}: {describe(prob)})",
+            lambda prob=prob: bundle_adjust(cam, prob, iters=BA_ITERS),
+            lambda n, prob=prob: eager_bundle_adjust(cam, prob, n),
+            BA_ITERS, "LM iteration", (0, 0), BACKEND_LAUNCHES_BA)
+    kf_feats, kf_t, kf_q, kf_valid = (loop[k] for k in (
+        "kf_feats", "kf_t", "kf_q", "kf_valid"))
+    m, rows = kf_feats.uv.shape[0], loop["max_tracks"]
+    first = lambda n, *xs: [x[:n] for x in xs]  # noqa: E731
+    results["tracks"] = backend_case(
+        f"build_tracks ({m} keyframes × {kf_feats.uv.shape[1]} features, "
+        f"{rows} rows)",
+        lambda: build_tracks(kf_feats, kf_t, kf_q, kf_valid, max_tracks=rows),
+        lambda n: eager_build_tracks(
+            Features(*first(n, *kf_feats)), *first(n, kf_t, kf_q, kf_valid),
+            max_tracks=rows),
+        m, "keyframe", (0, m), BACKEND_LAUNCHES_STEP)
+    _, tried = eager_mine(kf_feats, kf_t, kf_valid, gen(1))
+    results["mining"] = backend_case(
+        f"mine_keyframe_loop_closures ({tried} pairs tried)",
+        lambda: mine_keyframe_loop_closures(
+            kf_feats, kf_t, kf_q, kf_valid, max_pairs=MINE_MAX_PAIRS,
+            generator=gen(1)),
+        lambda n: eager_mine(kf_feats, kf_t, kf_valid, gen(1), n)[0],
+        tried, "pair", (tried, tried), BACKEND_LAUNCHES_STEP, verdict=1)
+    n = offline_feats.uv.shape[0] - 1
+    results["keyframes"] = backend_case(
+        f"find_keyframes_vo (cold, {n + 1} frames, {n} pairs)",
+        lambda: find_keyframes_vo(offline_feats, batch=OFFLINE_BATCH,
+                                  generator=gen(0)),
+        lambda k: eager_keyframe_search(
+            Features(*first(k + 1, *offline_feats)), gen(0), OFFLINE_BATCH),
+        n, "pair", (n, n), BACKEND_LAUNCHES_STEP, verdict=1)
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -3401,14 +3673,14 @@ def main() -> None:
 
     # ---- 15./16. config #4: keyframe BA, tracks, loop mining ----
     prob15 = timed("ba", ba_phase, sift_out, gt)
-    tracks_k2, (mine_k1, mine_k2), prob16 = timed("loop", loop_phase)
+    tracks_k2, (mine_k1, mine_k2), prob16, loop = timed("loop", loop_phase)
 
     # ---- 17.–20. the host-side paths: .dat, caches, replay, PnP/ICP ----
     with tempfile.TemporaryDirectory(prefix="pre3_smoke_") as tmp:
         tmp = Path(tmp)
         dat_k1, dat_k2 = timed("dat", dat_phase, tmp / "dat")
-        (kf_k1, kf_k2), warm = timed("offline-kf", offline_kf_phase,
-                                     tmp / "keyframing")
+        ((kf_k1, kf_k2), warm), offline_feats = timed(
+            "offline-kf", offline_kf_phase, tmp / "keyframing")
         timed("replay", replay_phase, tmp)
     pnp_err = timed("pnp-icp", pnp_icp_phase, images)
 
@@ -3425,6 +3697,10 @@ def main() -> None:
 
     # ---- 24. the step programs: each driver graphed against eager ----
     graph_res = timed("graphs", graphs_phase, images, im)
+
+    # ---- 25. config #4's programs: each graphed against eager ----
+    backend_res = timed("backend-graphs", backend_graphs_phase, prob15, loop,
+                        offline_feats)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -3506,7 +3782,10 @@ def main() -> None:
                                         "idle", "k1", "k2") if f in v}
                    for k, v in graph_res.items() if k != "memory"},
         "graph_memory": {k: graph_res["memory"][k]
-                         for k in ("growth", "eager_growth", "frontend")}}),
+                         for k in ("growth", "eager_growth", "frontend")},
+        "backend_graphs": {k: {f: v[f] for f in (
+            "launches", "host_ms", "busy_ms", "eager_launches",
+            "eager_host_ms", "k1", "k2")} for k, v in backend_res.items()}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -25,6 +25,16 @@ per direction, vmapped over the directions, gives every block at once.
 Batched tensors are never 0-d, so no tangent is promoted to float64.
 The LM loop has a static trip count and decides accept/reject with
 ``torch.where``: nothing is read back to the host.
+
+The reference jits ``bundle_adjust`` whole, its iterations one
+``lax.scan``. Here it is a step program (``utils/graphs.py``) with two
+variants, the initial cost (``cost0``) and one LM iteration
+(``iteration``), keyed by the problem's shapes (which optional factors
+are present included), ``fixed_first``, ``depth_range_ref`` and the
+factor weights, never by ``iters``: on the card a solve copies the
+problem into the program's buffers, replays the cost graph once and the
+iteration graph ``iters`` times, each updating the carry (poses, points,
+λ, the current cost) in place; on the CPU the same bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -37,6 +47,9 @@ from torch.func import jvp, vmap
 from pre3_tpu_torch.geometry.camera import Camera, distort, project_point
 from pre3_tpu_torch.geometry.quaternion import (
     q2v, qconj, qnormalize, qprod, qrotate, v2q,
+)
+from pre3_tpu_torch.utils.graphs import (
+    Packing, StepProgram, empty_like_tree, load, program, shape_key,
 )
 
 
@@ -319,30 +332,30 @@ def _depth_weights(mask_xyz, obs_xyz, depth_weight: float,
     return w
 
 
-def bundle_adjust(
-    cam: Camera,
-    problem: BaProblem,
-    iters: int = 10,
-    damping: float = 1e-3,
-    fixed_first: bool = True,
-    depth_weight: float = 50.0,
-    odo_weight_t: float = 20.0,
-    odo_weight_r: float = 50.0,
-    depth_range_ref: float = 0.0,
-    lcp_weight_t: float = 20.0,
-    lcp_weight_r: float = 50.0,
-) -> BaResult:
-    """Fixed-iteration Levenberg–Marquardt BA: a step that raises the
-    cost is rejected and λ raised ×10, an accepted step lowers it ×0.5,
-    all as tensor selects. depth_weight: weight of the 3D depth factors
-    (1/m); odo_weight_t/r and lcp_weight_t/r: weights of the odometry and
-    loop-closure pose factors (1/m, 1/rad)."""
+class _Terms(NamedTuple):
+    """A problem's factor set with its defaults filled in, as every LM
+    iteration reads it."""
+
+    odo: tuple | None  # (odo_t, odo_q, w_t, w_r, odo_w)
+    lcp: tuple | None  # (i, j, rel_t, rel_q, w_t, w_r, w, w_mat-or-None)
+    obs_xyz: torch.Tensor  # [F, L, 3] (zeros without depth factors)
+    w_xyz_fl: torch.Tensor  # [F, L] depth-factor weights
+    hub: torch.Tensor | float  # Huber δ: [1, L] with lc_lm, else 3.0
+
+
+def _terms(problem: BaProblem, depth_weight: float, odo_weight_t: float,
+           odo_weight_r: float, depth_range_ref: float, lcp_weight_t: float,
+           lcp_weight_r: float) -> _Terms:
+    """The factor set of ``problem``: its absent weights and depth
+    observations are device fills, never host copies."""
     f, l = problem.mask.shape
     dt, dev = problem.kf_t.dtype, problem.kf_t.device
-    odo_w = problem.odo_w if problem.odo_w is not None else torch.ones(
-        f - 1, dtype=dt, device=dev)
-    odo = ((problem.odo_t, problem.odo_q, odo_weight_t, odo_weight_r, odo_w)
-           if problem.odo_t is not None else None)
+    odo = None
+    if problem.odo_t is not None:
+        odo_w = problem.odo_w if problem.odo_w is not None else torch.ones(
+            f - 1, dtype=dt, device=dev)
+        odo = (problem.odo_t, problem.odo_q, odo_weight_t, odo_weight_r,
+               odo_w)
     lcp = ((problem.lcp_i, problem.lcp_j, problem.lcp_t, problem.lcp_q,
             lcp_weight_t, lcp_weight_r,
             problem.lcp_w if problem.lcp_w is not None else torch.ones(
@@ -361,42 +374,114 @@ def bundle_adjust(
     # loop-closure landmarks keep full quadratic weight
     hub = (torch.where(problem.lc_lm[None, :], 1e6, 3.0).to(dt)
            if problem.lc_lm is not None else 3.0)
+    return _Terms(odo, lcp, obs_xyz, w_xyz_fl, hub)
 
-    def cost(kf_t, kf_q, points):
-        return _cost(cam, kf_t, kf_q, points, problem.obs_uv, problem.mask,
-                     obs_xyz, w_xyz_fl, huber_delta=hub, odo=odo, lcp=lcp)
 
-    kf_t, kf_q, points = problem.kf_t, problem.kf_q, problem.points
-    lam = torch.full((), damping, dtype=dt, device=dev)
-    costs = [cost(kf_t, kf_q, points)]
-    for _ in range(iters):
-        c0 = costs[-1]  # the cost at the current iterate
-        hcc, hpp, wcp, bc, bp = _build_normal_eqs(
-            cam, kf_t, kf_q, points, problem.obs_uv, problem.mask, obs_xyz,
-            w_xyz_fl, lam, huber_delta=hub)
-        s_extra = rhs_extra = None
-        if odo is not None:
-            s_extra, rhs_extra, _, _ = _odo_terms(
-                kf_t, kf_q, problem.odo_t, problem.odo_q, odo_weight_t,
-                odo_weight_r, odo_w)
-        if lcp is not None:
-            s_lc, rhs_lc, _, _ = _pair_terms(
-                kf_t, kf_q, lcp[0], lcp[1], lcp[2], lcp[3], lcp_weight_t,
-                lcp_weight_r, lcp[6], lcp[7])
-            s_extra = s_lc if s_extra is None else s_extra + s_lc
-            rhs_extra = rhs_lc if rhs_extra is None else rhs_extra + rhs_lc
-        dc, dp = schur_solve(hcc, hpp, wcp, bc, bp, fixed_first, s_extra,
-                             rhs_extra)
-        t2 = kf_t + dc[:, :3]
-        q2 = qnormalize(qprod(kf_q, v2q(dc[:, 3:])))
-        p2 = points + dp
-        c1 = cost(t2, q2, p2)
-        better = c1 < c0
-        kf_t = torch.where(better, t2, kf_t)
-        kf_q = torch.where(better, q2, kf_q)
-        points = torch.where(better, p2, points)
-        lam = torch.where(better, torch.clamp(lam * 0.5, min=1e-8),
-                          torch.clamp(lam * 10.0, max=1e6))
-        costs.append(torch.where(better, c1, c0))
-    return BaResult(kf_t=kf_t, kf_q=kf_q, points=points,
-                    cost=torch.stack(costs))
+def _problem_cost(cam: Camera, problem: BaProblem, terms: _Terms, kf_t,
+                  kf_q, points) -> torch.Tensor:
+    """The masked mean factor cost of ``problem`` at an iterate."""
+    return _cost(cam, kf_t, kf_q, points, problem.obs_uv, problem.mask,
+                 terms.obs_xyz, terms.w_xyz_fl, huber_delta=terms.hub,
+                 odo=terms.odo, lcp=terms.lcp)
+
+
+def _lm_step(cam: Camera, problem: BaProblem, terms: _Terms,
+             fixed_first: bool, kf_t, kf_q, points, lam, c0):
+    """One LM iteration (the reference's ``gn_step``) from an iterate and
+    its cost ``c0``: (kf_t, kf_q, points, λ, the kept cost). A step that
+    raises the cost is rejected and λ raised ×10; an accepted one lowers
+    λ ×0.5."""
+    hcc, hpp, wcp, bc, bp = _build_normal_eqs(
+        cam, kf_t, kf_q, points, problem.obs_uv, problem.mask, terms.obs_xyz,
+        terms.w_xyz_fl, lam, huber_delta=terms.hub)
+    s_extra = rhs_extra = None
+    if terms.odo is not None:
+        s_extra, rhs_extra, _, _ = _odo_terms(kf_t, kf_q, *terms.odo)
+    if terms.lcp is not None:
+        s_lc, rhs_lc, _, _ = _pair_terms(kf_t, kf_q, *terms.lcp)
+        s_extra = s_lc if s_extra is None else s_extra + s_lc
+        rhs_extra = rhs_lc if rhs_extra is None else rhs_extra + rhs_lc
+    dc, dp = schur_solve(hcc, hpp, wcp, bc, bp, fixed_first, s_extra,
+                         rhs_extra)
+    t2 = kf_t + dc[:, :3]
+    q2 = qnormalize(qprod(kf_q, v2q(dc[:, 3:])))
+    p2 = points + dp
+    c1 = _problem_cost(cam, problem, terms, t2, q2, p2)
+    better = c1 < c0
+    return (torch.where(better, t2, kf_t), torch.where(better, q2, kf_q),
+            torch.where(better, p2, points),
+            torch.where(better, torch.clamp(lam * 0.5, min=1e-8),
+                        torch.clamp(lam * 10.0, max=1e6)),
+            torch.where(better, c1, c0))
+
+
+def _ba_body(cam: Camera, fixed_first: bool, weights: tuple,
+             carry: Packing):
+    """``bundle_adjust``'s program body over its buffers, per variant: the
+    problem from the ``problem`` buffers; the carry row holds (kf_t,
+    kf_q, points, λ, the current cost). ``cost0`` puts the initial
+    iterate and its cost into the carry (λ is the caller's fill);
+    ``iteration`` runs ``_lm_step`` on the carry."""
+
+    def make(variant: str):
+        def body(b, gens):
+            problem = b["problem"]
+            terms = _terms(problem, *weights)
+            kf_t, kf_q, points, lam, c0 = state = carry.unpack(b["carry"])
+            if variant == "cost0":
+                new = (problem.kf_t, problem.kf_q, problem.points, lam,
+                       _problem_cost(cam, problem, terms, problem.kf_t,
+                                     problem.kf_q, problem.points))
+            else:
+                new = _lm_step(cam, problem, terms, fixed_first, kf_t, kf_q,
+                               points, lam, c0)
+            load(state, new)
+
+        return body
+
+    return make
+
+
+def bundle_adjust(
+    cam: Camera,
+    problem: BaProblem,
+    iters: int = 10,
+    damping: float = 1e-3,
+    fixed_first: bool = True,
+    depth_weight: float = 50.0,
+    odo_weight_t: float = 20.0,
+    odo_weight_r: float = 50.0,
+    depth_range_ref: float = 0.0,
+    lcp_weight_t: float = 20.0,
+    lcp_weight_r: float = 50.0,
+) -> BaResult:
+    """Fixed-iteration Levenberg–Marquardt BA: a step that raises the
+    cost is rejected and λ raised ×10, an accepted step lowers it ×0.5,
+    all as tensor selects. depth_weight: weight of the 3D depth factors
+    (1/m); odo_weight_t/r and lcp_weight_t/r: weights of the odometry and
+    loop-closure pose factors (1/m, 1/rad)."""
+    weights = (depth_weight, odo_weight_t, odo_weight_r, depth_range_ref,
+               lcp_weight_t, lcp_weight_r)
+    dt, dev = problem.kf_t.dtype, problem.kf_t.device
+    scalar = torch.empty((), dtype=dt)
+    carry = Packing((problem.kf_t, problem.kf_q, problem.points, scalar,
+                     scalar))
+
+    def make():
+        bufs = dict(problem=empty_like_tree(problem),
+                    carry=carry.rows(device=dev))
+        return StepProgram("bundle_adjust", bufs, dev, carry=("carry",))
+
+    prog = program(("bundle_adjust", cam, fixed_first, weights,
+                    shape_key(problem)), make)
+    b = prog.buffers
+    load(b["problem"], problem)
+    *_, lam, c0 = carry.unpack(b["carry"])
+    lam.fill_(damping)
+    body = _ba_body(cam, fixed_first, weights, carry)
+    cost = torch.empty(iters + 1, dtype=dt, device=dev)
+    for i, variant in enumerate(["cost0"] + ["iteration"] * iters):
+        prog.run(variant, body(variant))
+        cost[i].copy_(c0)
+    kf_t, kf_q, points, _, _ = carry.unpack(b["carry"].clone())
+    return BaResult(kf_t=kf_t, kf_q=kf_q, points=points, cost=cost)

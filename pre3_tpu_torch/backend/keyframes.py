@@ -13,7 +13,15 @@ compaction that follows is the reference's stable sort.
 
 ``find_keyframes_vo`` is the offline pass itself (VO against the last
 accepted keyframe, resumable through ``utils/cache.py::VoCache``), and
-``export_keyframe_dataset`` writes its KeyFrames/ mirror dataset.
+``export_keyframe_dataset`` writes its KeyFrames/ mirror dataset. The
+reference's jitted pair VO is a step program (``utils/graphs.py``) keyed
+by one frame's shapes and the pass's config: the last keyframe and the
+candidate frame in its buffers (copied in from frames staged
+``STAGE_ROWS`` at a time), ``vo_pair`` and the motion's angle and length
+into its output row. On the card each computed pair is one replay of a
+captured CUDA graph with K2 and K1 inside, and its output row comes back
+to the host in one copy, the verdict read; on the CPU the same body runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -29,7 +37,11 @@ import torch
 from pre3_tpu_torch.data.sr4000 import list_sequence
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.quaternion import q2v, qconj, qprod
-from pre3_tpu_torch.vo.dead_reckoning import vo_pair
+from pre3_tpu_torch.geometry.se3 import Pose
+from pre3_tpu_torch.utils.graphs import (
+    STAGE_ROWS, Packing, StepProgram, program, shape_key,
+)
+from pre3_tpu_torch.vo.dead_reckoning import VoStep, vo_pair
 from pre3_tpu_torch.vo.ransac import _draw_gumbel
 
 ROT_THRESH_DEG = 4.0
@@ -93,6 +105,29 @@ class OfflineKeyframes(NamedTuple):
     n_vo_calls: int
 
 
+def motion(t: torch.Tensor, q: torch.Tensor):
+    """(rotation angle, translation length) of a VO increment, on its
+    device, as the reference measures a candidate keyframe."""
+    return torch.linalg.vector_norm(q2v(q)), torch.linalg.vector_norm(t)
+
+
+def _pair_body(batch: int, min_inliers: int, frame: Packing, pout: Packing):
+    """``find_keyframes_vo``'s program body: ``vo_pair`` from the last
+    keyframe (``last``) to the candidate (``cur``), with the candidate's
+    draws (``gumbel``) or the program's generator; the VoStep fields and
+    the increment's ``motion`` into the output row."""
+
+    def body(b, gens):
+        s = vo_pair(Features(*frame.unpack(b["last"])),
+                    Features(*frame.unpack(b["cur"])), gumbel=b["gumbel"],
+                    generator=gens[0] if gens else None, batch=batch,
+                    min_inliers=min_inliers)
+        pout.pack((s.delta.t, s.delta.q, s.ok, s.n_inliers, s.n_matches,
+                   s.cov, *motion(s.delta.t, s.delta.q)), b["out"])
+
+    return body
+
+
 def find_keyframes_vo(
     feats: Features,  # stacked over frames: [F, ...]
     rot_thresh_deg: float = ROT_THRESH_DEG,
@@ -107,36 +142,91 @@ def find_keyframes_vo(
     candidate frame's VO is computed AGAINST THE LAST ACCEPTED KEYFRAME,
     not chained frame to frame, and the frame is accepted when a_rot ≥ 4°
     or ‖T‖ ≥ 0.05 m with a valid solution; frames whose VO fails are
-    skipped. A host loop over ``vo_pair`` that reads each pair's verdict
-    back, as the reference does. ``vo_cache`` is a ``utils.cache.VoCache``
-    for resumable passes: a cached pair is read from disk and launches
-    nothing. Candidate frame i's RANSAC draws are ``gumbel[i-1]`` or are
-    drawn from ``generator`` for every candidate, cached or not, as the
+    skipped. A host loop over the pair program (see the module
+    docstring) that reads each pair's verdict back, as the reference
+    does; a computed pair's VoStep is a host copy of its output row.
+    ``vo_cache`` is a ``utils.cache.VoCache`` for resumable passes: a
+    cached pair is read from disk and launches no kernel of the pair.
+    Candidate frame i's RANSAC draws are ``gumbel[i-1]`` or are drawn
+    from ``generator`` for every candidate, cached or not, as the
     reference splits its key for every candidate: a partly cached pass
     gives each computed pair the draws an uncached pass would."""
     if gumbel is None and generator is None:
         raise ValueError("find_keyframes_vo needs gumbel noise or a generator")
     n_frames, kf = feats.uv.shape[:2]
+    dev = feats.uv.device
     rot_thresh = float(np.radians(rot_thresh_deg))
-    frame = lambda i: Features(*(x[i] for x in feats))  # noqa: E731
+    gens = [] if gumbel is not None else [generator]
+    frame = Packing(Features(*(x[0] for x in feats)))
+    dt = feats.xyz.dtype
+    pout = Packing(tuple(torch.empty(shape, dtype=d) for shape, d in (
+        ((3,), dt), ((4,), dt), ((), torch.bool), ((), torch.int32),
+        ((), torch.int32), ((6, 6), dt), ((), dt), ((), dt))))
+
+    def make():
+        bufs = dict(last=frame.rows(device=dev), cur=frame.rows(device=dev),
+                    gumbel=None if gumbel is None else torch.empty_like(
+                        gumbel[0]),
+                    out=pout.rows(device=dev))
+        return StepProgram("find_keyframes_vo", bufs, dev, len(gens))
+
+    prog = program(("find_keyframes_vo", batch, min_inliers, len(gens),
+                    shape_key(Features(*(x[0] for x in feats)),
+                              None if gumbel is None else gumbel[0])), make)
+    body = _pair_body(batch, min_inliers, frame, pout)
+    rows = frame.rows(min(n_frames, STAGE_ROWS), device=dev)
+    staged = held = None  # rows' first frame; the frame in ``last``
+
+    def row(i: int) -> torch.Tensor:
+        """Frame i's packed row, staging its block of frames first."""
+        nonlocal staged
+        lo = i - i % STAGE_ROWS
+        if staged != lo:
+            hi = min(n_frames, lo + STAGE_ROWS)
+            frame.pack(Features(*(x[lo:hi] for x in feats)), rows[:hi - lo])
+            staged = lo
+        return rows[i - lo]
+
+    def compute(last: int, i: int):
+        """The pair (last, i) through the program: its VoStep and the
+        increment's motion, as views of one host copy of the output
+        row."""
+        nonlocal held
+        b = prog.buffers
+        if held != last:
+            b["last"].copy_(row(last))
+            held = last
+        b["cur"].copy_(row(i))
+        if gumbel is not None:
+            b["gumbel"].copy_(gumbel[i - 1])
+        prog.run(None, body, gens)
+        t, q, ok, n_inl, n_match, cov, ang, dist = pout.unpack(
+            b["out"].to("cpu", copy=True))  # the verdict read
+        return VoStep(Pose(t, q), ok, n_inl, n_match, cov), (ang, dist)
+
     last = 0
     indices = [0]
     deltas_t = [np.zeros(3, np.float32)]
     deltas_q = [np.array([1.0, 0, 0, 0], np.float32)]
     n_calls = 0
     for i in range(1, n_frames):
-        g = gumbel[i - 1] if gumbel is not None else _draw_gumbel(
-            (batch, kf), generator, device=feats.uv.device)
-        compute = lambda g=g, last=last, i=i: vo_pair(  # noqa: E731
-            frame(last), frame(i), gumbel=g, batch=batch,
-            min_inliers=min_inliers)
-        step = (vo_cache.get(last, i, compute) if vo_cache is not None
-                else compute())
+        measured = []
+
+        def computed(last=last, i=i) -> VoStep:
+            step, m = compute(last, i)
+            measured.append(m)
+            return step
+
+        step = (vo_cache.get(last, i, computed) if vo_cache is not None
+                else computed())
         n_calls += 1
+        if not measured:  # read from the cache: draw and measure as above
+            if generator is not None:
+                _draw_gumbel((batch, kf), generator, device=dev)
+            measured.append(motion(step.delta.t, step.delta.q))
         if not bool(step.ok):
             continue
-        ang = float(torch.linalg.vector_norm(q2v(step.delta.q)))
-        dist = float(torch.linalg.vector_norm(step.delta.t))
+        ang, dist = (float(x) for x in measured[0])
         if ang >= rot_thresh or dist >= trans_thresh_m:
             indices.append(i)
             deltas_t.append(step.delta.t.cpu().numpy())

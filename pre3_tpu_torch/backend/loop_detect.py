@@ -8,8 +8,17 @@ yields one relative SE(3) factor (``BaProblem.lcp_*``) with the
 square-root information of its Kabsch fit's IFT covariance.
 
 A host loop over a handful of candidate pairs, reading each pair's
-verdict back once, as the reference does. The RANSAC draws of the n-th
-pair tried are ``gumbel[n]`` or come from ``generator``.
+verdict back once, as the reference does. The reference's jitted
+``match_and_fit`` is a step program (``utils/graphs.py``) keyed by one
+pair's shapes and the mining's config: its input row holds the pair's
+two keyframes (descriptors, points, validity; staged ``STAGE_ROWS``
+pairs at a time) and, when injected, its draws; its output row the fit
+(R, t, q, ok, inliers, RMSE) and the IFT covariance, computed for every
+pair as the reference does. On the card each pair is one replay of a
+captured CUDA graph with K2 and K1 inside, and its output row comes back
+to the host in one copy, the verdict read; on the CPU the same body runs
+eagerly. The RANSAC draws of the n-th pair tried are ``gumbel[n]`` or
+come from ``generator``.
 """
 
 from __future__ import annotations
@@ -20,6 +29,9 @@ import torch
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.quaternion import r2q
 from pre3_tpu_torch.ops.matching import match_descriptors_auto
+from pre3_tpu_torch.utils.graphs import (
+    STAGE_ROWS, Packing, StepProgram, program, shape_key,
+)
 from pre3_tpu_torch.vo.covariance import vo_covariance
 from pre3_tpu_torch.vo.ransac import ransac_rigid
 
@@ -84,6 +96,24 @@ def pairs_to_try(kf_t, kf_valid, min_gap: int = 8, max_dist: float = 1.2,
     return pairs
 
 
+def pair_fit(fa, fb, gumbel=None, generator=None, ratio: float = 1.3,
+             batch: int = 1024, min_inliers: int = 12):
+    """The reference's ``match_and_fit`` on one candidate pair, each side
+    a (desc, xyz, valid) triple: K2 matching, the K1-scored rigid RANSAC
+    and the fit's IFT covariance → (r, t, q, ok, n_inliers, rmse, cov)."""
+    (a_desc, a_xyz, a_valid), (b_desc, b_xyz, b_valid) = fa, fb
+    mt = match_descriptors_auto(a_desc, b_desc, valid1=a_valid,
+                                valid2=b_valid, ratio=ratio)
+    p_a, p_b = a_xyz, b_xyz[mt.index]
+    ok = (mt.accepted & a_valid
+          & (torch.linalg.vector_norm(p_a, dim=-1) > 0.2)
+          & (torch.linalg.vector_norm(p_b, dim=-1) > 0.2))
+    fit = ransac_rigid(p_a, p_b, ok, batch=batch, min_inliers=min_inliers,
+                       gumbel=gumbel, generator=generator)
+    cov = vo_covariance(fit.r, fit.t, p_a, p_b, fit.inliers.to(p_a.dtype))
+    return (fit.r, fit.t, r2q(fit.r), fit.ok, fit.n_inliers, fit.rmse, cov)
+
+
 def mine_keyframe_loop_closures(
     kf_feats: Features,  # stacked over the M keyframes
     kf_t,  # [M, 3] estimated keyframe positions (world)
@@ -103,33 +133,58 @@ def mine_keyframe_loop_closures(
     or None. lcp_t = R_iᵀ(t_j − t_i), lcp_q = q_i⁻¹ ⊗ q_j, estimated from
     the matched camera-frame point sets (p_i ≈ R·p_j + t), with no
     dependence on the drifted world poses. The pairs tried are those of
-    ``pairs_to_try`` up to the budget."""
+    ``pairs_to_try`` up to the budget, each one run of the pair program
+    (see the module docstring)."""
+    pairs = pairs_to_try(kf_t, kf_valid, min_gap, max_dist, min_path_ratio)
+    if not pairs:
+        return None
+    dev = kf_feats.xyz.device
+    side = lambda i: (kf_feats.desc[i], kf_feats.xyz[i],  # noqa: E731
+                      kf_feats.valid[i])
+    gens = [] if gumbel is not None else [generator]
+    one = (side(0), side(0), None if gumbel is None else gumbel[0])
+    pin = Packing(one)
+    dt = kf_feats.xyz.dtype
+    pout = Packing(tuple(torch.empty(shape, dtype=d) for shape, d in (
+        ((3, 3), dt), ((3,), dt), ((4,), dt), ((), torch.bool),
+        ((), torch.int32), ((), dt), ((6, 6), dt))))
+
+    def make():
+        bufs = dict(inp=pin.rows(device=dev), out=pout.rows(device=dev))
+        return StepProgram("mine_keyframe_loop_closures", bufs, dev,
+                           len(gens))
+
+    prog = program(("mine_keyframe_loop_closures", ratio, batch, min_inliers,
+                    len(gens), shape_key(one)), make)
+
+    def body(bufs, gens_):
+        fa, fb, g = pin.unpack(bufs["inp"])
+        pout.pack(pair_fit(fa, fb, g, gens_[0] if gens_ else None, ratio,
+                           batch, min_inliers), bufs["out"])
+
     out_i, out_j, out_t, out_q, out_l = [], [], [], [], []
-    for n_tried, (a, b) in enumerate(pairs_to_try(
-            kf_t, kf_valid, min_gap, max_dist, min_path_ratio)):
+    in_rows = pin.rows(min(len(pairs), STAGE_ROWS), device=dev)
+    for n_tried, (a, b) in enumerate(pairs):
         if len(out_i) >= max_pairs:
             break
-        fa = Features(*(x[a] for x in kf_feats))
-        fb = Features(*(x[b] for x in kf_feats))
-        mt = match_descriptors_auto(fa.desc, fb.desc, valid1=fa.valid,
-                                    valid2=fb.valid, ratio=ratio)
-        p_a, p_b = fa.xyz, fb.xyz[mt.index]
-        ok = (mt.accepted & fa.valid
-              & (torch.linalg.vector_norm(p_a, dim=-1) > 0.2)
-              & (torch.linalg.vector_norm(p_b, dim=-1) > 0.2))
-        fit = ransac_rigid(
-            p_a, p_b, ok, batch=batch, min_inliers=min_inliers,
-            gumbel=None if gumbel is None else gumbel[n_tried],
-            generator=generator)
-        if not bool(fit.ok):
+        lo = n_tried - n_tried % STAGE_ROWS
+        if lo == n_tried:  # stage the next block of pairs
+            hi = min(len(pairs), lo + STAGE_ROWS)
+            ab = torch.as_tensor(pairs[lo:hi]).to(dev)
+            pin.pack((side(ab[:, 0]), side(ab[:, 1]),
+                      None if gumbel is None else gumbel[lo:hi]),
+                     in_rows[:hi - lo])
+        prog.buffers["inp"].copy_(in_rows[n_tried - lo])
+        prog.run(None, body, gens)
+        _r, t, q, ok, _n, _rmse, cov = pout.unpack(
+            prog.buffers["out"].to("cpu", copy=True))  # the verdict read
+        if not bool(ok):
             continue
-        cov = vo_covariance(fit.r, fit.t, p_a, p_b,
-                            fit.inliers.to(p_a.dtype))
         out_i.append(a)
         out_j.append(b)
-        out_t.append(_numpy(fit.t).astype(np.float32))
-        out_q.append(_numpy(r2q(fit.r)).astype(np.float32))
-        out_l.append(sqrt_information(_numpy(cov)))
+        out_t.append(t.numpy().astype(np.float32))
+        out_q.append(q.numpy().astype(np.float32))
+        out_l.append(sqrt_information(cov.numpy()))
     if not out_i:
         return None
     return (np.asarray(out_i, np.int32), np.asarray(out_j, np.int32),

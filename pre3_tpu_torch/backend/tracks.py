@@ -5,8 +5,17 @@ matched keyframe to keyframe with the frontend's descriptor matcher (K2,
 one launch per keyframe), producing the masked [M, L] observation
 tensors of ``backend/ba.py``. Per keyframe: (1) match the track
 descriptors to the keyframe's features, (2) record observations,
-(3) spawn new tracks from unmatched features into free slots. The
-reference's ``lax.scan`` is a host loop that reads nothing back.
+(3) spawn new tracks from unmatched features into free slots.
+
+The reference's jitted ``lax.scan`` over the keyframes is a step program
+(``utils/graphs.py``) keyed by ``max_tracks``, ``adds_per_frame``,
+``ratio``, ``gate_px`` and one keyframe's shapes, never by the keyframe
+count: the track table is its carry (one byte row, updated in place),
+one keyframe's features, pose and validity its input row (staged
+``STAGE_ROWS`` keyframes at a time), the keyframe's observations its
+output row. On the card each keyframe is one replay of a captured CUDA
+graph with K2 inside; on the CPU the same body runs eagerly. Nothing is
+read back.
 """
 
 from __future__ import annotations
@@ -20,6 +29,9 @@ from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.camera import project, sr4000_camera
 from pre3_tpu_torch.geometry.quaternion import qconj, qrotate
 from pre3_tpu_torch.ops.matching import match_descriptors_auto
+from pre3_tpu_torch.utils.graphs import (
+    STAGE_ROWS, Packing, StepProgram, load, program, shape_key,
+)
 from pre3_tpu_torch.utils.topk import stable_topk
 
 
@@ -43,6 +55,73 @@ def used_features(index: torch.Tensor, matched: torch.Tensor,
     return (winner >= 0) & matched[torch.clamp(winner, min=0)]
 
 
+def track_step(table: TrackTable, feats: Features, t_wc, q_wc, kfv,
+               adds_per_frame: int, ratio: float, gate_px: float):
+    """One keyframe of ``build_tracks`` (the body of the reference's
+    scan): (the new table, (obs_uv [L, 2], obs_xyz [L, 3], rec [L]))."""
+    kf = feats.uv.shape[0]
+    cam = sr4000_camera()  # hard-wired, as in the reference
+    mt = match_descriptors_auto(table.desc, feats.desc, valid1=table.active,
+                                valid2=feats.valid, ratio=ratio)
+    matched = mt.accepted & kfv
+    obs_uv = feats.uv[mt.index]
+    obs_xyz = feats.xyz[mt.index]
+    has_depth = torch.linalg.vector_norm(obs_xyz, dim=-1) > 0.2
+    # geometric gate: the track's world point reprojected through the
+    # (initial) keyframe pose lands near the matched pixel
+    p_cam = qrotate(qconj(q_wc), table.point_w - t_wc)
+    pred = project(cam, p_cam)
+    close = (torch.linalg.vector_norm(pred - obs_uv, dim=-1) < gate_px) & (
+        p_cam[..., 2] > 0.2)
+    matched = matched & close
+    rec = matched & has_depth
+    # refresh the descriptor on a match
+    desc = torch.where(matched[:, None], feats.desc[mt.index], table.desc)
+
+    # spawn new tracks from unmatched frame features
+    used = used_features(mt.index, matched, kf)
+    cand = feats.valid & ~used & (
+        torch.linalg.vector_norm(feats.xyz, dim=-1) > 0.2) & kfv
+    score = torch.where(cand, feats.score, -1.0)
+    top_score, top_idx = stable_topk(score, adds_per_frame)
+    slot_order = torch.sort(table.active.to(torch.int32), stable=True).indices
+    free = slot_order[:adds_per_frame]
+    can_add = (top_score > 0) & ~table.active[free]
+    add2 = can_add[:, None]
+    p_w = t_wc + qrotate(q_wc, feats.xyz[top_idx])  # [A, 3]
+
+    def put(field, new):
+        out = field.clone()
+        out[free] = torch.where(add2 if new.dim() > 1 else can_add, new,
+                                field[free])
+        return out
+
+    table = TrackTable(desc=put(desc, feats.desc[top_idx]),
+                       active=put(table.active, can_add),
+                       point_w=put(table.point_w, p_w))
+    # the first observation of a spawned track is recorded too
+    return table, (put(obs_uv, feats.uv[top_idx]),
+                   put(obs_xyz, feats.xyz[top_idx]), put(rec, can_add))
+
+
+def _tracks_body(adds_per_frame: int, ratio: float, gate_px: float,
+                 pin: Packing, table: Packing, pout: Packing):
+    """``build_tracks``' program body: one keyframe's features, pose and
+    validity from the input row, ``track_step`` on the carried table, the
+    new table back into the carry and the observations into the output
+    row."""
+
+    def body(b, gens):
+        feats, t_wc, q_wc, kfv = pin.unpack(b["inp"])
+        carry = TrackTable(*table.unpack(b["table"]))
+        new, obs = track_step(carry, Features(*feats), t_wc, q_wc, kfv,
+                              adds_per_frame, ratio, gate_px)
+        pout.pack(obs, b["out"])
+        load(tuple(carry), tuple(new))
+
+    return body
+
+
 def build_tracks(
     kf_feats: Features,  # stacked over M keyframes
     kf_t: torch.Tensor,  # [M, 3] initial keyframe poses (world)
@@ -53,64 +132,46 @@ def build_tracks(
     ratio: float = 1.3,
     gate_px: float = 25.0,
 ):
-    """Returns (obs_uv [M,L,2], obs_xyz [M,L,3], mask [M,L], table)."""
+    """Returns (obs_uv [M,L,2], obs_xyz [M,L,3], mask [M,L], table): one
+    run of the tracks program per keyframe (see the module docstring);
+    the observations are views of the call's own output rows, the table a
+    copy of the final carry."""
     m = kf_feats.uv.shape[0]
-    l, dd = max_tracks, kf_feats.desc.shape[-1]
-    dt, dev = kf_feats.xyz.dtype, kf_feats.xyz.device
-    cam = sr4000_camera()  # hard-wired, as in the reference
-    table = TrackTable(desc=torch.zeros((l, dd), dtype=dt, device=dev),
-                       active=torch.zeros(l, dtype=torch.bool, device=dev),
-                       point_w=torch.zeros((l, 3), dtype=dt, device=dev))
-    uvs, xyzs, recs = [], [], []
-    for i in range(m):
-        feats = Features(*(x[i] for x in kf_feats))
-        t_wc, q_wc, kfv = kf_t[i], kf_q[i], kf_valid[i]
-        kf = feats.uv.shape[0]
-        mt = match_descriptors_auto(table.desc, feats.desc,
-                                    valid1=table.active, valid2=feats.valid,
-                                    ratio=ratio)
-        matched = mt.accepted & kfv
-        obs_uv = feats.uv[mt.index]
-        obs_xyz = feats.xyz[mt.index]
-        has_depth = torch.linalg.vector_norm(obs_xyz, dim=-1) > 0.2
-        # geometric gate: the track's world point reprojected through the
-        # (initial) keyframe pose lands near the matched pixel
-        p_cam = qrotate(qconj(q_wc), table.point_w - t_wc)
-        pred = project(cam, p_cam)
-        close = (torch.linalg.vector_norm(pred - obs_uv, dim=-1) < gate_px) & (
-            p_cam[..., 2] > 0.2)
-        matched = matched & close
-        rec = matched & has_depth
-        # refresh the descriptor on a match
-        desc = torch.where(matched[:, None], feats.desc[mt.index], table.desc)
+    dev = kf_feats.xyz.device
+    one = (Features(*(x[0] for x in kf_feats)), kf_t[0], kf_q[0],
+           kf_valid[0])
+    l, dt = max_tracks, kf_feats.xyz.dtype
+    pin = Packing(one)
+    table = Packing(TrackTable(  # all zeros: no track active
+        desc=torch.empty((l, kf_feats.desc.shape[-1]),
+                         dtype=torch.promote_types(kf_feats.desc.dtype, dt)),
+        active=torch.empty(l, dtype=torch.bool),
+        point_w=torch.empty((l, 3), dtype=dt)))
+    pout = Packing((torch.empty((l, 2), dtype=kf_feats.uv.dtype),
+                    torch.empty((l, 3), dtype=dt),
+                    torch.empty(l, dtype=torch.bool)))
 
-        # spawn new tracks from unmatched frame features
-        used = used_features(mt.index, matched, kf)
-        cand = feats.valid & ~used & (
-            torch.linalg.vector_norm(feats.xyz, dim=-1) > 0.2) & kfv
-        score = torch.where(cand, feats.score, -1.0)
-        top_score, top_idx = stable_topk(score, adds_per_frame)
-        slot_order = torch.sort(table.active.to(torch.int32),
-                                stable=True).indices
-        free = slot_order[:adds_per_frame]
-        can_add = (top_score > 0) & ~table.active[free]
-        add2 = can_add[:, None]
-        p_w = t_wc + qrotate(q_wc, feats.xyz[top_idx])  # [A, 3]
+    def make():
+        bufs = dict(table=table.rows(device=dev), inp=pin.rows(device=dev),
+                    out=pout.rows(device=dev))
+        return StepProgram("build_tracks", bufs, dev, carry=("table",))
 
-        def put(field, new):
-            out = field.clone()
-            out[free] = torch.where(add2 if new.dim() > 1 else can_add, new,
-                                    field[free])
-            return out
-
-        table = TrackTable(desc=put(desc, feats.desc[top_idx]),
-                           active=put(table.active, can_add),
-                           point_w=put(table.point_w, p_w))
-        # the first observation of a spawned track is recorded too
-        uvs.append(put(obs_uv, feats.uv[top_idx]))
-        xyzs.append(put(obs_xyz, feats.xyz[top_idx]))
-        recs.append(put(rec, can_add))
-    return torch.stack(uvs), torch.stack(xyzs), torch.stack(recs), table
+    prog = program(("build_tracks", max_tracks, adds_per_frame, ratio,
+                    gate_px, shape_key(one)), make)
+    prog.buffers["table"].zero_()
+    body = _tracks_body(adds_per_frame, ratio, gate_px, pin, table, pout)
+    in_rows = pin.rows(min(m, STAGE_ROWS), device=dev)
+    out_rows = pout.rows(m, device=dev)
+    for lo in range(0, m, STAGE_ROWS):
+        hi = min(m, lo + STAGE_ROWS)
+        rows = in_rows[:hi - lo]
+        pin.pack((Features(*(x[lo:hi] for x in kf_feats)), kf_t[lo:hi],
+                  kf_q[lo:hi], kf_valid[lo:hi]), rows)
+        prog.run_rows([None] * (hi - lo), lambda _: body, rows,
+                      out_rows[lo:hi])
+    obs_uv, obs_xyz, rec = pout.unpack(out_rows)
+    final = TrackTable(*table.unpack(prog.buffers["table"].clone()))
+    return obs_uv, obs_xyz, rec, final
 
 
 def make_ba_problem_from_tracks(
