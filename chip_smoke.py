@@ -113,7 +113,12 @@ device, and imports nothing of JAX. Phases:
                   the five stages, RANSAC and the landmark-sharded BA,
                   equal to the bit across the ranks and within the
                   tolerances of 21a. Per case: collectives, bytes,
-                  transport, K1/K2 launches;
+                  transport, K1/K2 launches. Each sharded BA (21a: both
+                  on phases 15–16's problems; 21b: the landmark one and
+                  the pose one on the dry run's problem) through its
+                  program against its eager loop on every rank, bit for
+                  bit: host ms, launches and device busy per LM
+                  iteration, graphed and eager;
  22. batch      — 22a the batched K1 at (16, 512, 288) and K2 at
                   16 × 288²×128 and 16 × 256×288×128: bitwise equal to 16
                   single launches, one launch through torch.func.vmap,
@@ -163,11 +168,20 @@ device, and imports nothing of JAX. Phases:
                   counters (0 per LM iteration, one K2 per keyframe, one
                   K1 and one K2 per pair); host ms, host-issued launches,
                   device busy and idle share per step, graphed and eager;
-                  capture seconds and pools; launches within their limits.
+                  capture seconds and pools; launches within their limits;
+ 26. frontend-graphs — extract_features_sift (exact and fast) and
+                  extract_features at 256 frames, 1 frame and 72 (a chunk
+                  and a tail), each through its programs against its
+                  bodies run eagerly, bit for bit: host ms, launches and
+                  device busy per chunk, graphed and eager (at most 6
+                  launches per chunk), capture seconds and pools; then
+                  run_slam_pipelined against run_slam, to the bit.
 
-The drivers, bundle_adjust's LM iterations, the keyframe tracks and the
-loop-mining and keyframe-search pairs replay one captured CUDA graph per
-step (K1 and K2 inside);
+The drivers, bundle_adjust's LM iterations, the keyframe tracks, the
+loop-mining and keyframe-search pairs, the standalone frontends (one
+graph per chunk) and the sharded BAs (per LM iteration one graph over
+NCCL or at one rank, one per block between collectives over gloo)
+replay captured CUDA graphs (K1 and K2 inside);
 a program's first call captures it, waiting for the device once, and
 the phases that time a driver run it once untimed first. K1 and K2 count
 their own runs on the device (a replay counts; a program's warm-up,
@@ -373,8 +387,27 @@ MD_LAUNCHES = {
     "pose-sharded-ba": (0, 0), "stage-pipeline": (8, 16),
     "multiprocess": (1 + 7, 2 * 7), "ransac": (1, 0), "ba": (0, 0),
     "ba64": (0, 0), "pose_ba": (0, 0), "pose_ba_loop": (0, 0),
-    "pipeline": (MD_FRAMES - 1, 2 * (MD_FRAMES - 1)),
+    "pose_dry": (0, 0), "pipeline": (MD_FRAMES - 1, 2 * (MD_FRAMES - 1)),
 }
+# Each sharded BA's program against its eager loop (graphs.eager() in the
+# rank): "X" is the solve whose first call captures, "X~graphed" the same
+# solve again, replays only, and "X~eager" the eager loop, each timed;
+# where MD_PROFILE says so, "X~graphed1/2" and "X~eager1/2" at 1 and 2 LM
+# iterations, each profiled once on rank 0: their difference is one
+# iteration (the profiler lists every kernel, a replayed one too, and a
+# pose-sharded iteration holds ~7,000; whole solves take it minutes).
+# Phase 16's problem is only timed. 21a's landmark-sharded BA issues at
+# most MD_GRAPH_LAUNCHES host launches per LM iteration over its whole
+# solve (one replay and the cost's copy per iteration; the shard's
+# loads, cost0 and the result spread over it). 21b's pose-sharded case
+# is the dry run's problem (dryrun.make_pose_ba_problem(2, seed 0)) at
+# MD_DRY_ITERS iterations of MD_DRY_CG PCG iterations: over gloo every
+# collective runs on the host (1.3 ms each in the dry run's stage, PR
+# 12), 142 per iteration at this trip count, so the case is cut.
+MD_GRAPH_LAUNCHES = 6
+MD_DRY_ITERS, MD_DRY_CG = 2, 32
+MD_PROFILE = {"ba": True, "pose_ba": True, "pose_ba_loop": False,
+              "pose_dry": True}
 
 # Phase 22 (batch): the multi-sequence path, run_slam_batched (one
 # torch.func.vmap of slam_step over S sequences per step), on
@@ -2110,10 +2143,85 @@ def md_check_launches(name, records) -> None:
     """Each stage's and case's K1 and K2 launches on one rank are
     MD_LAUNCHES'."""
     for case, rec in records.items():
-        if (rec["k1"], rec["k2"]) != MD_LAUNCHES[case]:
+        if (rec["k1"], rec["k2"]) != MD_LAUNCHES[case.split("~")[0]]:
             raise AssertionError(
                 f"{name} {case}: K1 {rec['k1']}, K2 {rec['k2']} launches, "
                 f"expected {MD_LAUNCHES[case]}")
+
+
+def md_family(case: dict, profile: bool) -> list[dict]:
+    """A sharded BA case and its family (see MD_PROFILE): the solve again
+    through its program and as its eager loop, timed; with ``profile``
+    each at 1 and 2 LM iterations, profiled."""
+    args = case["args"]
+    more = {"~graphed": {}, "~eager": dict(eager=True)}
+    if profile:
+        for n in (1, 2):
+            more[f"~graphed{n}"] = dict(profile=True,
+                                        args={**args, "iters": n})
+            more[f"~eager{n}"] = dict(eager=True, profile=True,
+                                      args={**args, "iters": n})
+    return [case] + [{**case, "name": case["name"] + k, **v}
+                     for k, v in more.items()]
+
+
+def md_graphs(tag: str, results: list, name: str, iters: int,
+              limit: float | None = None) -> dict:
+    """A sharded BA's program against its eager loop on every rank:
+    the first (capturing) solve, the replayed one and the eager loop
+    equal to the bit; on rank 0 host ms per LM iteration, graphed and
+    eager, and where the family was profiled, launches and device busy
+    ms per LM iteration as 2 iterations less 1, graphed and eager, and
+    the graphed solve's launches per LM iteration over ``iters`` (its
+    loads, cost0 and result spread over it: 1 iteration's launches plus
+    iters − 1 more iterations'), which ``limit`` bounds. Returns those
+    figures."""
+    for r in results:
+        out = r["outputs"]
+        for other in (name + "~graphed", name + "~eager"):
+            diff = [k for k in out[name]
+                    if not torch.equal(out[name][k], out[other][k])]
+            if diff:
+                raise AssertionError(f"{tag} {name}: rank {r['rank']}'s "
+                                     f"{other} differs in {diff}")
+    rec = results[0]["records"]
+    g, e = rec[name + "~graphed"], rec[name + "~eager"]
+    caps = rec[name]["captures"]
+    res = dict(host_ms=1e3 * g["seconds"] / iters,
+               eager_host_ms=1e3 * e["seconds"] / iters,
+               first_s=rec[name]["seconds"], captures=len(caps),
+               capture_s=sum(c[2] for c in caps),
+               pool_mib=sum(c[3] for c in caps) / 2**20)
+    line = (f"{tag} {name}: graphed vs eager bit-equal on every rank; per "
+            f"LM iteration over {iters}: host {res['host_ms']:.3f} ms "
+            f"graphed, {res['eager_host_ms']:.3f} ms eager; the first "
+            f"(capturing) solve {res['first_s']:.2f} s: {len(caps)} graphs "
+            f"captured in {res['capture_s']:.2f} s, pools "
+            f"{res['pool_mib']:.1f} MiB "
+            f"({', '.join(f'{c[1]} {c[3] / 2**20:.0f}' for c in caps)})")
+    if name + "~graphed2" in rec:
+        g1, g2 = rec[name + "~graphed1"], rec[name + "~graphed2"]
+        e1, e2 = rec[name + "~eager1"], rec[name + "~eager2"]
+        res.update(launches=g2["launches"] - g1["launches"],
+                   busy_ms=g2["busy_ms"] - g1["busy_ms"],
+                   idle=1.0 - g2["busy_ms"] / g2["wall_ms"],
+                   eager_launches=e2["launches"] - e1["launches"],
+                   eager_busy_ms=e2["busy_ms"] - e1["busy_ms"],
+                   eager_idle=1.0 - e2["busy_ms"] / e2["wall_ms"])
+        res["solve_launches"] = (g1["launches"] + (iters - 1)
+                                 * res["launches"]) / iters
+        line += (f"; 2 iterations less 1: graphed launches "
+                 f"{res['launches']:.1f}, device busy {res['busy_ms']:.4f} "
+                 f"ms, idle share {res['idle']:.4f} (2 iterations); eager "
+                 f"launches {res['eager_launches']:.1f}, device busy "
+                 f"{res['eager_busy_ms']:.4f} ms, idle share "
+                 f"{res['eager_idle']:.4f}; the graphed solve "
+                 f"{res['solve_launches']:.2f} launches per LM iteration")
+    phase("multi-device", line)
+    if limit is not None and res["solve_launches"] > limit:
+        raise AssertionError(f"{tag} {name}: {res['solve_launches']:.2f} "
+                             f"launches per LM iteration (limit {limit})")
+    return res
 
 
 def md_first_difference(a, b) -> str | None:
@@ -2180,10 +2288,14 @@ def multi_device_phase(im, prob15, prob16):
                      k: v.double() if v is not None and v.is_floating_point()
                      else v for k, v in md_cpu(prob15).items()},
                      "iters": BA_ITERS}}
-    cases = [ransac_case, ba_case, ba64_case] + [
+    pose_cases = [
         {"name": name, "kind": "pose_ba", "mesh": {"axis": "blk"},
          "args": {"problem": md_cpu(prob), "iters": BA_ITERS}}
-        for name, prob in (("pose_ba", prob15), ("pose_ba_loop", prob16))
+        for name, prob in (("pose_ba", prob15), ("pose_ba_loop", prob16))]
+    cases = [ransac_case, *md_family(ba_case, MD_PROFILE["ba"]),
+             ba64_case] + [
+        c for case in pose_cases
+        for c in md_family(case, MD_PROFILE[case["name"]])
     ] + [{"name": "pipeline", "kind": "pipeline", "mesh": {"axis": "frame"},
           "args": {"intensity": frames[0].cpu(), "xyz": frames[1].cpu(),
                    "conf": frames[2].cpu(), "cfg": SIFT_CFG,
@@ -2251,12 +2363,24 @@ def multi_device_phase(im, prob15, prob16):
     for name, rec in res_a["records"].items():
         if rec["comm"] and not any(k.endswith("/nccl") for k in rec["comm"]):
             raise AssertionError(f"21a {name}: no collective went over NCCL")
+    graphed = {"21a " + name: md_graphs(
+        "21a", [res_a], name, BA_ITERS,
+        MD_GRAPH_LAUNCHES if name == "ba" else None)
+        for name in ("ba", "pose_ba", "pose_ba_loop")}
 
     # ---- 21b: two ranks on cuda:0 over gloo ----
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    dry, _ = dryrun.make_pose_ba_problem(2, np.random.default_rng(0))
+    dry_case = {"name": "pose_dry", "kind": "pose_ba",
+                "mesh": {"axis": "blk"},
+                "args": {"problem": md_cpu(dry), "iters": MD_DRY_ITERS,
+                         "cg_iters": MD_DRY_CG}}
     res_b = dryrun.run(2, backend="gloo", device="cuda",
-                       cases=[ransac_case, ba_case, ba64_case],
+                       cases=[ransac_case,
+                              *md_family(ba_case, MD_PROFILE["ba"]),
+                              ba64_case,
+                              *md_family(dry_case, MD_PROFILE["pose_dry"])],
                        timeout=MD_TIMEOUT)
     phase("multi-device", f"21b: 2 ranks, gloo, "
           f"{[r['device'] for r in res_b]}: "
@@ -2288,11 +2412,14 @@ def multi_device_phase(im, prob15, prob16):
     phase("multi-device", f"21a/21b f32 landmark-sharded BA vs the same in "
           f"f64: max |Δ| {f32_err[0]:.3e} m at one rank, {f32_err[1]:.3e} m "
           f"at two")
+    graphed["21b ba"] = md_graphs("21b", res_b, "ba", BA_ITERS)
+    graphed["21b pose_dry"] = md_graphs("21b", res_b, "pose_dry",
+                                        MD_DRY_ITERS)
     k_a = (sum(r["k1"] for r in res_a["records"].values()),
            sum(r["k2"] for r in res_a["records"].values()))
     k_b = [(sum(r["k1"] for r in x["records"].values()),
             sum(r["k2"] for r in x["records"].values())) for x in res_b]
-    return k_a, k_b
+    return k_a, k_b, graphed
 
 
 def batch_kernels():
@@ -2582,15 +2709,18 @@ def fast_parity(images):
 
 def fast_timing(im):
     """23b: device time of extract_features_sift over one FAST_CHUNK-frame
-    chunk per branch, from the profiler as profile_slice reads it, in
-    turns exact, fast, fast, exact after a warm-up of each; within the
-    same profiled run, the band filters' device time (every kernel that a
-    _tri_sepconv call launches, each call inside a profiler range) and
-    the bf16 GEMMs. Returns {branch: [ms per frame, ...]}."""
+    chunk per branch, its program's body run eagerly (``graphs.eager()``:
+    a replay runs no Python, so no profiler range), from the profiler as
+    profile_slice reads it, in turns exact, fast, fast, exact after a
+    warm-up of each; within the same profiled run, the band filters'
+    device time (every kernel that a _tri_sepconv call launches, each
+    call inside a profiler range) and the bf16 GEMMs. Returns {branch:
+    [ms per frame, ...]}."""
     from torch.profiler import (ProfilerActivity, profile,
                                 record_function)
 
     from pre3_tpu_torch.frontend import sift
+    from pre3_tpu_torch.utils import graphs
     from pre3_tpu_torch.utils.profile_slice import LAUNCHES
 
     inner = sift._tri_sepconv
@@ -2607,7 +2737,7 @@ def fast_timing(im):
         for ho, wo in ((-(-h // 2**o), -(-w // 2**o))
                        for o in range(BAND_OCTAVES)))
     for value in ("0", "1"):
-        with sift_branch(value):
+        with sift_branch(value), graphs.eager():
             sift_features(chunk)
     torch.cuda.synchronize()
     ms, gemms = {"exact": [], "fast": []}, {"exact": [], "fast": []}
@@ -2615,7 +2745,8 @@ def fast_timing(im):
     for name in ("exact", "fast", "fast", "exact"):
         sift._tri_sepconv = ranged
         try:
-            with sift_branch("1" if name == "fast" else "0"), profile(
+            with sift_branch("1" if name == "fast" else "0"), graphs.eager(
+            ), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
             ) as prof:
                 sift_features(chunk)
@@ -3064,7 +3195,10 @@ def graph_memory(feats_all, cam, images):
     """24d: the graphed run_slam's peak at GRAPH_MEMORY_FRAMES (K=256),
     first call (the program made and captured) and steady; the eager loop
     at EAGER_MEMORY_FRAMES and what one step's kept outputs hold; the
-    SIFT frontend's peak at GRAPH_MEMORY_FRAMES."""
+    SIFT frontend's allocated peak at GRAPH_MEMORY_FRAMES, the memory
+    reserved after it (which the peak does not see: the graph pool is
+    the allocator's reserve, not its allocations) and the frontend
+    programs' shared pool."""
     from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
     from pre3_tpu_torch.frontend.pipeline import Features
     from pre3_tpu_torch.utils import graphs
@@ -3093,10 +3227,11 @@ def graph_memory(feats_all, cam, images):
     espan = EAGER_MEMORY_FRAMES[1] - EAGER_MEMORY_FRAMES[0]
     e_growth = (eager[EAGER_MEMORY_FRAMES[1]] - eager[EAGER_MEMORY_FRAMES[0]]
                 ) * 2**20 / 1e6 / espan
-    fe = {}
+    fe, fe_reserved = {}, {}
     for n in GRAPH_MEMORY_FRAMES:
         im_n = [torch.as_tensor(a[:n], device="cuda") for a in images]
         fe[n] = peak_above(lambda: sift_features(im_n))
+        fe_reserved[n] = torch.cuda.memory_reserved() / 2**20
         del im_n
     phase("graphs", f"24d memory, K={SIFT_LANDMARKS}: graphed run_slam peak "
           f"above its inputs, first call (program made, captured) "
@@ -3110,12 +3245,15 @@ def graph_memory(feats_all, cam, images):
           f"eager step's kept outputs hold {kept[0]:.4f} MiB of storage for "
           f"{kept[1]:.4f} MiB of data; the SIFT frontend's peak "
           f"{ {n: round(v, 1) for n, v in fe.items()} } MiB at "
-          f"{GRAPH_MEMORY_FRAMES} frames")
+          f"{GRAPH_MEMORY_FRAMES} frames, reserved after it "
+          f"{ {n: round(v, 1) for n, v in fe_reserved.items()} } MiB; "
+          + frontend_pool())
     if max(growth.values()) > GRAPH_PEAK_GROWTH_MB:
         raise AssertionError(f"graphs: run_slam's peak grows "
                              f"{growth} MB per frame")
     return dict(first=first, steady=steady, growth=growth, eager=eager,
-                eager_growth=e_growth, kept=kept, frontend=fe)
+                eager_growth=e_growth, kept=kept, frontend=fe,
+                frontend_reserved=fe_reserved)
 
 
 def online_graphs(images, cam):
@@ -3610,6 +3748,173 @@ def backend_graphs_phase(prob15, loop, offline_feats):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 26 (frontend-graphs): the standalone frontends (extract_features,
+# extract_features_sift) replay one captured CUDA graph per chunk of up to
+# 64 frames (frontend/pipeline.py); each is held against its eager bodies
+# on the card.
+# ---------------------------------------------------------------------------
+
+# The corridor's 256 frames (four 64-frame chunks), one frame (the
+# examples' and OnlineSlam's bootstrap calls) and 72 frames (a chunk and
+# a tail of 8, a program of its own).
+FRONTEND_FRAMES = (N_FRAMES, 1, 72)
+# Host-issued launches per chunk: the copy in (one multi-tensor copy of
+# the chunk's intensity, xyz and confidence), the graph launch and the
+# copy out (one per dtype of the features: f32 and bool).
+FRONTEND_LAUNCHES = 6
+# run_slam_pipelined against run_slam: the first run captures the
+# pipeline's programs, the others replay them
+PIPELINE_RUNS = 3
+
+
+def frontend_pool() -> str:
+    """The frontend programs' shared graph pool: its size and graphs."""
+    from pre3_tpu_torch.frontend.pipeline import FRONTEND_POOL
+    from pre3_tpu_torch.utils import graphs
+
+    pool = [p for (name, _), p in graphs.pools().items()
+            if name == FRONTEND_POOL]
+    if not pool:
+        raise AssertionError("frontend-graphs: no frontend program captured "
+                             "into the frontend pool")
+    return (f"the frontend pool {pool[0].bytes / 2**20:.1f} MiB for "
+            f"{pool[0].graphs} graphs")
+
+
+def nested_capture_refused(frames) -> str:
+    """A program whose body calls extract_features_sift (a program) must
+    fail its capture, naming both programs; its warm-up, outside any
+    capture, runs the frontend's program as any caller would."""
+    from pre3_tpu_torch.frontend.pipeline import extract_features_sift
+    from pre3_tpu_torch.utils import graphs
+
+    outer = graphs.StepProgram("nested-capture probe", {}, "cuda")
+    part = [x[:2] for x in frames]
+    try:
+        outer.run("v", lambda b, g: extract_features_sift(*part))
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("frontend-graphs: a program ran inside another "
+                             "program's capture")
+    if "extract_features_sift" not in msg or "nested-capture probe" not in msg:
+        raise AssertionError(f"frontend-graphs: the nested capture raised "
+                             f"without naming both programs: {msg}")
+    return msg
+
+
+def frontend_case(name, fn, chunks: int) -> dict:
+    """One frontend call through its programs (the first call captures
+    any program or variant not captured yet) against the same call with
+    the programs' bodies run eagerly (``graphs.eager()``), bit for bit;
+    per chunk: host ms (medians of 3), host-issued launches and device
+    busy of one profiled run, graphed and eager; the capture seconds and
+    pools."""
+    from pre3_tpu_torch.utils import graphs
+
+    before = captured_now()
+    t_first = host_seconds(fn)
+    caps = new_captures(before)
+    got = fn()
+    t_graph = statistics.median([host_seconds(fn) for _ in range(3)])
+    launches, busy, wall, _, _ = profiled_launches(fn)
+    with graphs.eager():
+        ref = fn()
+        t_eager = statistics.median([host_seconds(fn) for _ in range(3)])
+        e_launches, e_busy, e_wall, _, _ = profiled_launches(fn)
+    equal, gap = tree_gap(list(got), list(ref))
+    res = dict(name=name, equal=equal, host_ms=1e3 * t_graph / chunks,
+               launches=launches / chunks, busy_ms=busy / chunks,
+               idle=1.0 - busy / wall, eager_host_ms=1e3 * t_eager / chunks,
+               eager_launches=e_launches / chunks,
+               eager_busy_ms=e_busy / chunks, eager_idle=1.0 - e_busy / e_wall,
+               first_s=t_first, captures=caps)
+    phase("frontend-graphs", f"{name}: graphed vs eager bit-equal {equal} "
+          f"(max gap {gap:.3e}); per chunk (over {chunks}): graphed host "
+          f"{res['host_ms']:.3f} ms, launches {res['launches']:.2f}, device "
+          f"busy {res['busy_ms']:.4f} ms, idle share {res['idle']:.4f}; "
+          f"eager host {res['eager_host_ms']:.3f} ms, launches "
+          f"{res['eager_launches']:.1f}, device busy "
+          f"{res['eager_busy_ms']:.4f} ms, idle share "
+          f"{res['eager_idle']:.4f}; first call {t_first:.2f} s; "
+          + ("; ".join(caps) or "no new capture"))
+    if not equal:
+        raise AssertionError(f"frontend-graphs {name}: graphed and eager "
+                             f"differ (max gap {gap:.3e})")
+    if res["launches"] > FRONTEND_LAUNCHES:
+        raise AssertionError(f"frontend-graphs {name}: {res['launches']:.2f} "
+                             f"launches per chunk (limit "
+                             f"{FRONTEND_LAUNCHES})")
+    return res
+
+
+def frontend_graphs_phase(im):
+    """Phase 26: the SIFT frontend (exact and fast branches) and the FAST
+    frontend at FRONTEND_FRAMES, each graphed against its eager bodies;
+    then a program entered during another's capture (refused), and
+    after it run_slam_pipelined (SIFT, MD_FRAMES frames in chunks of
+    MD_CHUNK: the next chunk's frontend replayed on a side stream while
+    the backend's steps replay) against run_slam on the one-batch
+    frontend, under the same draws, to the bit, PIPELINE_RUNS times: the
+    first with every program dropped, so that the pipeline captures its
+    programs itself, on the side stream among them."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig, run_slam
+    from pre3_tpu_torch.frontend.pipeline import (
+        extract_features, extract_features_sift,
+    )
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.runtime.stage_pipeline import run_slam_pipelined
+    from pre3_tpu_torch.utils import graphs
+    from pre3_tpu_torch.utils.interop import to_torch
+
+    results = {}
+    for n in FRONTEND_FRAMES:
+        part = [x[:n] for x in im]
+        chunks = -(-n // 64)
+        for branch, label in (("0", "exact"), ("1", "fast")):
+            with sift_branch(branch):
+                results[f"sift {label} {n}"] = frontend_case(
+                    f"extract_features_sift ({label}, {n} frames)",
+                    lambda part=part: extract_features_sift(*part), chunks)
+        results[f"fast {n}"] = frontend_case(
+            f"extract_features (FAST, {n} frames)",
+            lambda part=part: extract_features(
+                *part, threshold=THRESHOLD, max_features=MAX_FEATURES),
+            chunks)
+    cam, cfg = sr4000_camera(), SlamConfig(**SIFT_CFG)
+    draws = to_torch(ekf_draws(MD_FRAMES, cfg, SIFT_LANDMARKS, seed=26,
+                               kf=SIFT_KF), "cuda")
+    frames = [x[:MD_FRAMES] for x in im]
+    phase("frontend-graphs", f"after every case: {frontend_pool()}")
+    msg = nested_capture_refused(frames)
+    phase("frontend-graphs", f"nested capture refused: {msg}")
+    ref = run_slam(cam, extract_features_sift(*frames), cfg,
+                   n_landmarks=SIFT_LANDMARKS, draws=draws)
+    for run in range(PIPELINE_RUNS):
+        if run == 0:
+            graphs.clear()
+        torch.cuda.synchronize()
+        t_pipe = time.perf_counter()
+        got = run_slam_pipelined(cam, *frames, cfg=cfg,
+                                 n_landmarks=SIFT_LANDMARKS, chunk=MD_CHUNK,
+                                 extractor="sift", draws=draws)
+        torch.cuda.synchronize()
+        t_pipe = time.perf_counter() - t_pipe
+        equal, gap = tree_gap([got.t, got.q, *got.stats],
+                              [ref.t, ref.q, *ref.stats])
+        how = "its programs captured in it" if run == 0 else "replays"
+        phase("frontend-graphs", f"run_slam_pipelined run {run + 1} of "
+              f"{PIPELINE_RUNS} ({how}; SIFT, {MD_FRAMES} frames, chunks "
+              f"of {MD_CHUNK}) vs run_slam: "
+              f"t, q and every stat equal to the bit {equal} (max gap "
+              f"{gap:.3e}); {t_pipe:.2f} s")
+        if not equal:
+            raise AssertionError(f"frontend-graphs: run_slam_pipelined run "
+                                 f"{run + 1} differs from run_slam")
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -3685,7 +3990,8 @@ def main() -> None:
     pnp_err = timed("pnp-icp", pnp_icp_phase, images)
 
     # ---- 21. the multi-device modules on spawned ranks ----
-    md_a, md_b = timed("multi-device", multi_device_phase, im, prob15, prob16)
+    md_a, md_b, _ = timed("multi-device", multi_device_phase, im, prob15,
+                          prob16)
 
     # ---- 22. the multi-sequence path: run_slam_batched ----
     b_err, b_times, (b_k1, b_k2) = timed("batch", batch_phase)
@@ -3701,6 +4007,9 @@ def main() -> None:
     # ---- 25. config #4's programs: each graphed against eager ----
     backend_res = timed("backend-graphs", backend_graphs_phase, prob15, loop,
                         offline_feats)
+
+    # ---- 26. the standalone frontends: each graphed against eager ----
+    timed("frontend-graphs", frontend_graphs_phase, im)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 

@@ -18,7 +18,13 @@ run the reference's five stages on the reference's shapes and seeds:
 Besides the stages, ``run`` takes a file of cases (``cases=``): each names
 a parallel entry point, its mesh and its inputs, and every rank runs it
 and returns its outputs, the collectives it ran and the kernel launches
-it made. The tests and the smoke run the parallel modules this way.
+it made. A record also lists the graphs the case captured (program, variant,
+seconds, pool bytes). A case may ask for its step programs' bodies to
+run eagerly (``"eager": True``, ``graphs.eager()``: the plain loop the
+programs are held to) and for one more run in a profiler window
+(``"profile": True`` on the card: host-issued launches, device busy and
+wall time, read on rank 0). The
+tests and the smoke run the parallel modules this way.
 
     python3 -m pre3_tpu_torch.parallel.dryrun --world-size 2 --device cpu
     python3 -m pre3_tpu_torch.parallel.dryrun --world-size 1   # NCCL
@@ -35,6 +41,7 @@ make_rigid_problem`` (pinned equal by ``tests/test_torch_dryrun.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import socket
 import tempfile
@@ -64,6 +71,7 @@ from pre3_tpu_torch.parallel.vo_sharded import sharded_ransac_rigid
 from pre3_tpu_torch.runtime.stage_pipeline import (
     run_slam_pipelined, sharded_extract,
 )
+from pre3_tpu_torch.utils import graphs
 
 CAM = sr4000_camera()
 FAST = {"threshold": 0.05, "max_features": 96}
@@ -281,10 +289,12 @@ def _stage_ba(n, rng, device, comm, lines):
     return _cpu(res)
 
 
-def _stage_pose_ba(n, rng, device, comm, lines):
-    # F = 2n as in the reference, at least 8: with fewer keyframes one or
-    # two block windows cover the whole corridor and the global group is
-    # empty. At one rank it always is (one block covers every keyframe)
+def make_pose_ba_problem(n, rng):
+    """(BaProblem of CPU tensors, gt kf_t) of the pose-sharded stage at n
+    ranks: a corridor of F = max(2n, 8) keyframes, 3 landmarks seen from
+    both ends, one loop-closure pose factor. With fewer keyframes one or
+    two block windows cover the whole corridor and the global group is
+    empty; at one rank it always is (one block covers every keyframe)."""
     n_kf = max(2 * n, 8)
     kf_t = np.zeros((n_kf, 3), np.float32)
     kf_t[:, 0] = 0.12 * np.arange(n_kf)
@@ -338,6 +348,12 @@ def _stage_pose_ba(n, rng, device, comm, lines):
         lcp_t=t((kf_t[n_kf - 2] - kf_t[1])[None].astype(np.float32)),
         lcp_q=t(np.array([[1.0, 0, 0, 0]], np.float32)),
         lcp_w=torch.ones(1))
+    return prob, kf_t
+
+
+def _stage_pose_ba(n, rng, device, comm, lines):
+    prob, kf_t = make_pose_ba_problem(n, rng)
+    n_kf = kf_t.shape[0]
     mesh = make_mesh(n, axis="blk", device=device)
     mesh.comm = comm
     res, rep = bundle_adjust_pose_sharded(mesh, CAM, _to(prob, device),
@@ -425,18 +441,39 @@ def rank_main(rank: int, world: int, port: int, backend: str | None,
 
     comm = CommLog()
 
-    def record(name, fn):
-        """Run ``fn``; keep its outputs, seconds, K1/K2 launches and
-        collectives."""
-        t0 = time.perf_counter()
-        k1, k2 = _launches()
-        out = fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        k1b, k2b = _launches()
-        result["records"][name] = {
-            "seconds": time.perf_counter() - t0, "k1": k1b - k1,
-            "k2": k2b - k2, "comm": comm.take()}
+    def record(name, fn, eager=False, profile=False):
+        """Run ``fn`` (its programs' bodies eagerly with ``eager``); keep
+        its outputs, seconds, K1/K2 launches and collectives; with
+        ``profile`` on the card, run it once more, on rank 0 in a
+        profiler window (its launches, device busy ms and wall ms kept),
+        on the others plainly, for the collectives."""
+        mode = graphs.eager() if eager else contextlib.nullcontext()
+        before = {(id(p), v) for p in graphs.programs() for v in p.graphs}
+        with mode:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            k1, k2 = _launches()
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            k1b, k2b = _launches()
+            rec = result["records"][name] = {
+                "seconds": time.perf_counter() - t0, "k1": k1b - k1,
+                "k2": k2b - k2, "comm": comm.take(),
+                "captures": [(p.name, str(v), c.capture_s, c.pool_bytes)
+                             for p in graphs.programs()
+                             for v, c in p.graphs.items()
+                             if (id(p), v) not in before]}
+            if profile and dev.type == "cuda" and rank == 0:
+                from pre3_tpu_torch.utils.profile_slice import _profiled
+
+                launches, busy, wall, _ = _profiled(fn)
+                rec.update(launches=launches, busy_ms=busy / 1e3,
+                           wall_ms=1e3 * wall)
+            elif profile and dev.type == "cuda":
+                fn()
+            comm.take()  # the profiled run's collectives
         result["outputs"][name] = out
 
     if stages:
@@ -457,8 +494,11 @@ def rank_main(rank: int, world: int, port: int, backend: str | None,
                 result["outputs"][case["name"]] = None
                 continue
             mesh.comm = comm
-            record(case["name"], lambda: run_case(
-                mesh, case["kind"], _to(case["args"], dev), dev))
+            args = _to(case["args"], dev)
+            record(case["name"], lambda: run_case(mesh, case["kind"], args,
+                                                  dev),
+                   eager=case.get("eager", False),
+                   profile=case.get("profile", False))
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     if dist.is_initialized():
         dist.barrier()

@@ -19,7 +19,7 @@ every collective is a local copy.
 
 The collectives map the reference's as follows:
 
-  psum(x)               → all_reduce(SUM)
+  psum(x)               → all_reduce(SUM) in place (``psum_``)
   all_gather(tiled)     → all_gather_into_tensor
   ppermute(x, perm)     → one batch_isend_irecv per permutation
 
@@ -34,6 +34,7 @@ name, never a caught error.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -49,11 +50,30 @@ class CommLog:
 
     def __init__(self) -> None:
         self.ops: dict[tuple[str, str], list[int]] = {}
+        self._tape: list | None = None
 
     def record(self, op: str, nbytes: int, transport: str) -> None:
+        if self._tape is not None:
+            self._tape.append((op, nbytes, transport))
+            return
         entry = self.ops.setdefault((op, transport), [0, 0])
         entry[0] += 1
         entry[1] += int(nbytes)
+
+    @contextlib.contextmanager
+    def taping(self):
+        """Records made inside the block go to the yielded list (a tape),
+        not to the log: what one run of a captured body issues, which
+        ``extend`` logs once per replay."""
+        prev, self._tape = self._tape, []
+        try:
+            yield self._tape
+        finally:
+            self._tape = prev
+
+    def extend(self, tape: list) -> None:
+        for rec in tape:
+            self.record(*rec)
 
     def take(self) -> dict[str, dict[str, int]]:
         """The record so far as {"op/transport": {"count", "bytes"}}, and
@@ -174,16 +194,17 @@ def _transport(mesh: Mesh, op: str, group, x: torch.Tensor) -> str:
     return transport
 
 
-def psum(mesh: Mesh, x: torch.Tensor, axis: str | None = None
-         ) -> torch.Tensor:
-    """Sum of ``x`` over the axis' ranks (all_reduce SUM), on every rank."""
+def psum_(mesh: Mesh, x: torch.Tensor, axis: str | None = None
+          ) -> torch.Tensor:
+    """Sum of ``x`` over the axis' ranks (all_reduce SUM), in place on
+    ``x`` (a program's buffer) on every rank. gloo's CUDA all-reduce
+    waits for the current stream before it reads ``x`` and makes the
+    current stream wait for its result."""
     ax = mesh.axis(axis)
     _transport(mesh, "all_reduce", ax.group, x)
-    if ax.group is None:
-        return x
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ax.group)
-    return out
+    if ax.group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=ax.group)
+    return x
 
 
 def all_gather(mesh: Mesh, x: torch.Tensor, axis: str | None = None

@@ -31,11 +31,16 @@ once per frame and never waits. Here:
     storage that no later frame overwrites, and reading them
     (``trajectory``) is what synchronises.
 
-The bootstrap frame runs eagerly (``boot_fn``), once. Random draws come
-from ``generator`` (a ``torch.Generator`` on the device, the port's
-counterpart of the reference's key) or, per call, from ``draws``.
-``process_chunk`` runs C frames as one frontend batch and ``scan_steps``'
-program (one replay per step). Each step's ``StepRecord`` is kept on the
+The bootstrap frame runs eagerly (``boot_fn``), once, its frontend
+through the frontend's program at one frame. The frame program's body
+(``fused_fn``) calls the frontend's plain body (``fast_features`` or
+``sift_features``): a program cannot run inside another's capture.
+Random draws come from ``generator`` (a ``torch.Generator`` on the
+device, the port's counterpart of the reference's key) or, per call,
+from ``draws``.
+``process_chunk`` runs C frames through the frontend's program (one
+replay per chunk of up to 64 frames) and ``scan_steps``' program (one
+replay per step). Each step's ``StepRecord`` is kept on the
 device; ``smooth()`` brings them to the host once and runs the keyframe
 BA backend over them. Snapshots every ``snapshot_every`` steps
 (``utils/checkpoint.py``) carry the generator's state, so a resumed run
@@ -58,7 +63,8 @@ from pre3_tpu_torch.ekf.slam import (
 )
 from pre3_tpu_torch.ekf.state import EkfState
 from pre3_tpu_torch.frontend.pipeline import (
-    Features, extract_features, extract_features_sift,
+    Features, extract_features, extract_features_sift, fast_features,
+    sift_features,
 )
 from pre3_tpu_torch.frontend.sift import _fast_math
 from pre3_tpu_torch.geometry.camera import Camera
@@ -167,10 +173,14 @@ class OnlineSlam:
         self.generator = generator if generator is not None else (
             torch.Generator(device=self.device).manual_seed(0))
         ek = dict(extractor_kwargs or {})
+        # the frontend's program (the bootstrap, prime, process_chunk) and
+        # its plain body (fused_fn, which the frame program captures)
         if extractor == "fast":
             self._extract = partial(extract_features, **ek)
+            self._extract_body = partial(fast_features, **ek)
         elif extractor == "sift":
             self._extract = partial(extract_features_sift, **ek)
+            self._extract_body = partial(sift_features, **ek)
         else:
             raise ValueError(f"unknown extractor {extractor!r}")
         # the NCC matcher reads the intensity image (and samples the xyz
@@ -226,8 +236,8 @@ class OnlineSlam:
         captures): frontend, ``slam_step``, step + 1 → (state, step + 1,
         feats, t, q, stats, record). ``host_step`` decides the periodic
         attitude update."""
-        feats = _frame(self._extract(intensity[None], xyz[None],
-                                     conf[None]), 0)
+        feats = _frame(self._extract_body(intensity[None], xyz[None],
+                                          conf[None]), 0)
         state, (stats, rec) = slam_step(
             self.cam, state, feats, prev, step, self.cfg, draws=draws,
             generator=generator,

@@ -5,18 +5,23 @@ mechanisms:
 
 1. **Sharded frontend** (``sharded_extract``): per-frame feature
    extraction is embarrassingly parallel, so each rank of a mesh axis
-   extracts its contiguous slice of a frame chunk with the batched
-   extractor, and the ``Features`` fields are all-gathered: every rank
-   holds the chunk's features, replicated.
+   extracts its contiguous slice of a frame chunk through the
+   frontend's program at the slice's frame count, and the ``Features``
+   fields are all-gathered outside it: every rank holds the chunk's
+   features, replicated.
 
 2. **Chunked software pipeline** (``run_slam_pipelined``): the EKF
    backend is a strict recursion over frames, so the pipeline overlaps
    stages, not frames: the frontend of chunk c+1 is issued before the
    backend ``scan_steps`` of chunk c. On the card it runs on a side
    stream and the backend waits on its event, so the card interleaves
-   the two; the host issues the next chunk's frontend before it replays
-   the current chunk's steps (``scan_steps``' step program: one graph
-   replay per step). The first chunk captures its program inside the
+   the two; the host issues the next chunk's frontend (one replay of
+   the frontend's program per chunk) before it replays the current
+   chunk's steps (``scan_steps``' step program: one graph replay per
+   step). The frontend program's buffers serve every call: chunk c's
+   copy out of them precedes chunk c+1's copy in, both on the side
+   stream, and each call's features are its own tensors, made on the
+   side stream and recorded on the main one. The first chunk captures its program inside the
    loop (one program serves every chunk length); the capture is
    thread-local and waits for the device as it begins, so the side
    stream's frontend finishes first and may allocate freely on it

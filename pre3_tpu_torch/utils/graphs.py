@@ -23,6 +23,21 @@ carry and the output row in place:
 * on the CPU the body runs eagerly on the same buffers, so the CPU tests
   hold the same step against the JAX package.
 
+A program is run from outside any capture. A body captured into one
+program must call the plain functions, never another program: a graph
+cannot be replayed inside another's capture, so ``program`` and ``run``
+raise there, naming both programs, before a buffer is made or written
+(``OnlineSlam``'s frame body calls the frontend's plain body, not the
+frontend's program).
+
+Each program's graphs share one memory pool. Programs made with the
+same ``pool`` name share theirs too (the frontend's, one per frame count
+and config): a capture keeps nothing alive in the pool, since a body
+writes what it hands on into buffers made outside the capture, so the
+pool holds the largest graph's temporaries, not their sum. Their
+replays must not overlap: a replay on another stream than the pool's
+last waits for that one to end.
+
 A variant that draws takes the caller's generators. On the card the
 program's own generators are registered with its graph, set from the
 caller's before a replay and copied back after, so one program serves
@@ -42,10 +57,15 @@ counter (``uncounted``).
 
 Programs are cached by key (``program``): the function, its config and
 one step's shapes, dtypes and device. ``clear()`` drops them.
+
+``eager()`` runs every program's bodies eagerly on its buffers on the
+card too, as on the CPU, while it is open: the plain loop a smoke run
+holds the replays to. Nothing opens it implicitly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -61,11 +81,64 @@ from pre3_tpu_torch.utils.launch_count import uncounted
 # call holds besides its caller's stacked inputs.
 STAGE_ROWS = 64
 
+# the programs whose bodies are being captured (outermost first), and
+# whether eager() is open
+_CAPTURING: list[str] = []
+_EAGER = False
+
+
+def _refuse_in_capture(name: str) -> None:
+    """Raise if the current stream is capturing a graph (see the module
+    docstring)."""
+    if torch.cuda.is_current_stream_capturing():
+        outer = _CAPTURING[-1] if _CAPTURING else "a capture"
+        raise RuntimeError(
+            f"{name}: run while {outer} is being captured; a captured body "
+            f"calls the plain function, not the program")
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every program's bodies eagerly on their buffers while open,
+    on the card as on the CPU (see the module docstring)."""
+    global _EAGER
+    prev, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = prev
+
 
 class Captured(NamedTuple):
     graph: Any  # torch.cuda.CUDAGraph
     capture_s: float  # warm-up + capture, host seconds
-    pool_bytes: int  # device memory the capture reserved
+    pool_bytes: int  # device memory the capture added to its pool
+
+
+class Pool:
+    """A graph memory pool shared by several programs' graphs, and the
+    end of its last replay (see the module docstring)."""
+
+    def __init__(self, handle) -> None:
+        self.handle = handle
+        self.bytes = 0  # reserved by the captures into it
+        self.graphs = 0
+        self.done = torch.cuda.Event()
+        self.stream = None  # of the last replay
+
+    def order(self, stream) -> None:
+        """Before a replay on ``stream``: wait for the last replay if it
+        ran on another stream."""
+        if self.stream is not None and self.stream != stream:
+            stream.wait_event(self.done)
+
+    def replayed(self, stream) -> None:
+        self.done.record(stream)
+        self.stream = stream
+
+
+# shared pools by (name, device)
+_POOLS: dict = {}
 
 
 class _OpTrail(TorchDispatchMode):
@@ -84,10 +157,18 @@ class StepProgram:
     (see the module docstring)."""
 
     def __init__(self, name: str, buffers: dict, device: torch.device,
-                 n_generators: int = 0, carry: tuple[str, ...] = ()) -> None:
+                 n_generators: int = 0,
+                 carry: tuple[str, ...] | str = (),
+                 pool: str | None = None) -> None:
         self.name = name
         self.buffers = buffers
-        self.carry = carry  # the buffers the body updates in place
+        # the name of a pool shared with other programs' graphs; None:
+        # a pool of this program's own
+        self.pool = pool
+        # the buffers the body updates in place; "all": every buffer
+        # there is when a variant is warmed (a body split into variants
+        # that hand each other their state through the buffers)
+        self.carry = carry
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.generators = [torch.Generator(self.device)
@@ -97,8 +178,11 @@ class StepProgram:
     def run(self, variant, body: Callable, generators=()) -> None:
         """``body(buffers, generators)`` once: replayed on the card,
         eager on the CPU. ``generators``: the caller's, one per draw
-        stream, for a variant that draws; none for one that does not."""
-        if not self.cuda:
+        stream, for a variant that draws; none for one that does not.
+        Raises inside another capture (see the module docstring)."""
+        if self.cuda:
+            _refuse_in_capture(self.name)
+        if not self.cuda or _EAGER:
             body(self.buffers, list(generators))
             return
         if variant not in self.graphs:
@@ -109,7 +193,13 @@ class StepProgram:
         """One replay of the captured ``variant`` (``run`` captures it):
         what the host issues per run, and nothing else."""
         self._bind(generators)
+        shared = _POOLS.get((self.pool, self.device))
+        stream = torch.cuda.current_stream(self.device)
+        if shared is not None:
+            shared.order(stream)
         self.graphs[variant].graph.replay()
+        if shared is not None:
+            shared.replayed(stream)
         for g, p in zip(generators, self.generators):
             g.set_state(p.get_state())
 
@@ -160,7 +250,9 @@ class StepProgram:
         the carry is put back after it (inputs are only read, outputs
         rewritten by the next run) and the caller's generators are not
         touched, so the first replay gives what the eager step would."""
-        bufs = tree_leaves([self.buffers[k] for k in self.carry])
+        names = self.buffers if self.carry == "all" else self.carry
+        bufs = [t for t in tree_leaves([self.buffers[k] for k in names])
+                if t is not None]
         saved = [t.clone() for t in bufs]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -178,17 +270,33 @@ class StepProgram:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
+        shared = first = None
+        if self.pool is not None:
+            shared = _POOLS.get((self.pool, self.device))
+        else:  # the program's first graph made its pool
+            first = next(iter(self.graphs.values()), None)
+        handle = (shared.handle if shared is not None else
+                  first.graph.pool() if first is not None else None)
         trail = _OpTrail()
+        _CAPTURING.append(self.name)
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=handle,
+                                  capture_error_mode="thread_local"):
                 with trail:
                     body(self.buffers, mine)
         except Exception as e:
             raise RuntimeError(
                 f"{self.name}: the step cannot be captured into a CUDA graph; "
                 f"the last op dispatched was {trail.last}: {e}") from e
-        return Captured(graph, 0.0,
-                        torch.cuda.memory_reserved(self.device) - reserved)
+        finally:
+            _CAPTURING.pop()
+        grown = torch.cuda.memory_reserved(self.device) - reserved
+        if self.pool is not None:
+            if shared is None:
+                shared = _POOLS[(self.pool, self.device)] = Pool(graph.pool())
+            shared.bytes += grown
+            shared.graphs += 1
+        return Captured(graph, 0.0, grown)
 
 
 _PROGRAMS: dict = {}
@@ -198,7 +306,10 @@ def program(key, make: Callable[[], StepProgram]) -> StepProgram:
     """The cached program for ``key``, made by ``make()`` the first
     time. The key names everything the buffers' layout and the captured
     graphs depend on: the function, its config, one step's shapes and
-    dtypes, the device and which draws are injected."""
+    dtypes, the device and which draws are injected. Raises during a
+    capture (see the module docstring)."""
+    if torch.cuda.is_available():
+        _refuse_in_capture(key[0])
     prog = _PROGRAMS.get(key)
     if prog is None:
         prog = _PROGRAMS[key] = make()
@@ -209,8 +320,14 @@ def programs() -> list[StepProgram]:
     return list(_PROGRAMS.values())
 
 
+def pools() -> dict:
+    """The shared pools by (name, device)."""
+    return dict(_POOLS)
+
+
 def clear() -> None:
     _PROGRAMS.clear()
+    _POOLS.clear()
 
 
 def shape_key(*trees) -> tuple:
@@ -230,6 +347,36 @@ def load(dst: Any, src: Any) -> None:
             d.copy_(s)
 
 
+def load_grouped(dst: list, src: list) -> None:
+    """Copy each tensor of ``src`` into the same-shaped one of ``dst``
+    with one multi-tensor copy per dtype (``torch._foreach_copy_``: one
+    launch on the card for same-dtype contiguous tensors): a step's
+    inputs in and its outputs out in as few launches as their dtypes
+    allow."""
+    groups: dict = {}
+    for d, s in zip(dst, src):
+        ds, ss = groups.setdefault(s.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def keep(buffers: dict, name: str, value: Any) -> Any:
+    """``value`` (a tensor or a tree of them) written into the program
+    buffer ``name``, which its first run makes like it: a variant's
+    warm-up on the card, outside any capture. A body hands what a later
+    variant reads through such a buffer. Returns the buffer."""
+    if name not in buffers:
+        if any(t.is_cuda for t in tree_leaves(value)) and (
+                torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(f"program buffer {name!r} first made during "
+                               f"a CUDA graph capture")
+        buffers[name] = empty_like_tree(value)
+    load(buffers[name], value)
+    return buffers[name]
+
+
 def empty_like_tree(tree: Any) -> Any:
     """Fresh tensors of ``tree``'s shapes (a NamedTuple of tensors, or
     one tensor); None stays None."""
@@ -237,7 +384,8 @@ def empty_like_tree(tree: Any) -> Any:
         return None
     if isinstance(tree, torch.Tensor):
         return torch.empty_like(tree)
-    return type(tree)(*(empty_like_tree(x) for x in tree))
+    parts = (empty_like_tree(x) for x in tree)
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
 
 
 class Packing:

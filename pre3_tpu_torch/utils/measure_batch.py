@@ -98,7 +98,10 @@ def pipeline(images, n_landmarks: int, seed: int, cam=None,
     features, frontend seconds, SLAM seconds), each time on the host
     clock around a synchronize. With ``check`` a host sync inside either
     call raises. On the card ``peaks`` gets each stage's peak device
-    memory in MiB (``frontend``, ``slam``)."""
+    memory in MiB (``frontend``, ``slam``) and the memory reserved after
+    the frontend (``frontend_reserved``: its programs' graph pool and
+    buffers and the allocator's cache, which the allocated peak does not
+    see)."""
     cam = sr4000_camera() if cam is None else cam
     device = images[0].device
     cuda = device.type == "cuda"
@@ -118,6 +121,8 @@ def pipeline(images, n_landmarks: int, seed: int, cam=None,
     sync()
     t1 = time.perf_counter()
     stage_peak("frontend")
+    if peak:
+        peaks["frontend_reserved"] = torch.cuda.memory_reserved() / 2**20
     gens = generators(len(images[0]), seed, device)
     with sync_checked(check and cuda):
         out = run_slam_batched(cam, feats, CFG, n_landmarks=n_landmarks,
@@ -183,11 +188,13 @@ def measure(images, gts, n_landmarks: int = N_LANDMARKS, reps: int = 3,
         k1=k1, k2=k2, valid_per_frame=float(
             feats.valid.sum(-1).float().mean()),
         peak_mib=None, frontend_peak_mib=None, slam_peak_mib=None,
+        frontend_reserved_mib=None,
         launches_per_step=None, busy_ms_per_step=None, idle_share=None,
         trajectory=out)
     if cuda:
         res.update(peak_mib=max(peaks["frontend"], peaks["slam"]),
                    frontend_peak_mib=peaks["frontend"],
+                   frontend_reserved_mib=peaks["frontend_reserved"],
                    slam_peak_mib=peaks["slam"])
         launches, busy, idle = profile_step(feats, n_landmarks)
         res.update(launches_per_step=launches, busy_ms_per_step=busy,
@@ -211,7 +218,9 @@ def describe(res: dict) -> str:
             f"{fmt('busy_ms_per_step', '.3f', ' ms')} per step; idle share "
             f"{fmt('idle_share', '.4f')}; peak memory "
             f"{fmt('peak_mib', '.1f', ' MiB')} (frontend "
-            f"{fmt('frontend_peak_mib', '.1f', ' MiB')}, SLAM "
+            f"{fmt('frontend_peak_mib', '.1f', ' MiB')}, "
+            f"{fmt('frontend_reserved_mib', '.1f', ' MiB')} reserved after "
+            f"it, SLAM "
             f"{fmt('slam_peak_mib', '.1f', ' MiB')}, the last timed run)")
 
 

@@ -192,6 +192,12 @@ def _cases(world):
     cases.append({"name": "ba_odo64", "kind": "ba", "mesh": {"axis": "lm"},
                   "args": {"problem": f64(port(_problems()["ba_odo"])),
                            "iters": 8}})
+    # the collectives of one LM iteration: 5 iterations less 3
+    for iters in (3, 5):
+        cases.append({"name": f"ba_iters{iters}", "kind": "ba",
+                      "mesh": {"axis": "lm"},
+                      "args": {"problem": port(_problems()["ba_odo"]),
+                               "iters": iters}})
     if world == 4:
         # tests/mp_worker.py's layout: a 2×2 (hosts × local) mesh, BA over
         # "lm", RANSAC over "hyp"; and a 2-rank submesh of the 4 ranks
@@ -423,6 +429,33 @@ def test_ba_sharded_f64_matches_single_device(world):
     for f in ("kf_t", "kf_q", "points"):
         np.testing.assert_allclose(got[f], getattr(ref, f), rtol=0,
                                    atol=1e-10, err_msg=f)
+
+
+def per_iteration(results, name, iters=(3, 5)):
+    """The collectives one LM iteration adds: {"op/transport": (count,
+    bytes)} of the case at iters[1] less the one at iters[0], per
+    iteration."""
+    a, b = (results[0]["records"][f"{name}{i}"]["comm"] for i in iters)
+    n = iters[1] - iters[0]
+    return {k: ((v["count"] - a.get(k, {"count": 0})["count"]) / n,
+                (v["bytes"] - a.get(k, {"bytes": 0})["bytes"]) / n)
+            for k, v in b.items()
+            if v != a.get(k)}
+
+
+def test_ba_sharded_collectives_per_iteration(world):
+    """One LM iteration all-reduces [S | rhs] (F·6·F·6 + F·6 floats) and
+    the cost pair, over gloo, and nothing else, as the eager solve did
+    (the parent's CommLog at these shapes); the solve's other
+    collectives (the problem's broadcasts, cost0's all-reduce, the final
+    gather) do not grow with iters."""
+    n, results = world
+    f = _problems()["ba_odo"].mask.shape[0]
+    assert per_iteration(results, "ba_iters") == {
+        "all_reduce/gloo": (2, 4 * (f * 6 * f * 6 + f * 6 + 2))}
+    comm = results[0]["records"]["ba_iters5"]["comm"]
+    assert comm["all_reduce/gloo"]["count"] == 1 + 2 * 5
+    assert comm["all_gather/gloo"]["count"] == 1
 
 
 def test_ranks_agree(world):

@@ -24,14 +24,15 @@ from pre3_tpu.parallel.ba_pose_sharded import (
 )
 from pre3_tpu.parallel.mesh import make_mesh as jmake_mesh
 from pre3_tpu_torch.backend.ba import BaProblem, bundle_adjust
+from pre3_tpu_torch.parallel import dryrun
 from pre3_tpu_torch.parallel.ba_pose_sharded import (
     bundle_adjust_pose_sharded,
 )
 from pre3_tpu_torch.parallel.mesh import make_mesh
 from tests.test_ba import CAM as JCAM
 from test_torch_parallel import (
-    BA_ATOL, CAM, check_ranks_agree, check_states, corridor, out, port,
-    spawn, with_lcp,
+    BA_ATOL, CAM, check_ranks_agree, check_states, corridor, out,
+    per_iteration, port, spawn, with_lcp,
 )
 
 # The reference test's bounds against the single-device optimizer (CG
@@ -39,6 +40,7 @@ from test_torch_parallel import (
 # blocks are tiny or padded, 8e-3 (and 5e-3) against the ground truth.
 LOCAL_ATOL, LAYOUT_ATOL, GT_ATOL = 2e-3, 3e-3, 8e-3
 POSE = dict(iters=8, cg_iters=96, sep=3)
+CG_ITERS = 16  # the collective-count cases' trip count
 
 
 @functools.cache
@@ -63,9 +65,18 @@ def _problems(world):
 
 
 def _cases(world):
-    return [{"name": name, "kind": "pose_ba", "mesh": {"axis": "blk"},
-             "args": {"problem": port(prob), **opts}}
-            for name, (prob, _, opts) in _problems(world).items()]
+    cases = [{"name": name, "kind": "pose_ba", "mesh": {"axis": "blk"},
+              "args": {"problem": port(prob), **opts}}
+             for name, (prob, _, opts) in _problems(world).items()]
+    # the collectives of one LM iteration (5 iterations less 3) on the
+    # dry run's problem: global landmarks and a loop-closure factor
+    prob, _ = dryrun.make_pose_ba_problem(world, np.random.default_rng(0))
+    for iters in (3, 5):
+        cases.append({"name": f"pose_iters{iters}", "kind": "pose_ba",
+                      "mesh": {"axis": "blk"},
+                      "args": {"problem": prob._asdict(), "iters": iters,
+                               "cg_iters": CG_ITERS}})
+    return cases
 
 
 @pytest.fixture(scope="module")
@@ -211,6 +222,27 @@ def test_world1_self_permutation():
     comm = mesh.comm.take()
     assert comm["ppermute/local"]["count"] > 0
     assert comm["all_gather/local"]["count"] > 0
+
+
+def test_collectives_per_iteration(world):
+    """One LM iteration's collectives, as the eager solve issued them
+    (the parent's CommLog at these shapes), over gloo: ``ppermute`` slabs
+    of sep poses for the halo exchanges of t and q, the halo reduces of
+    the rhs and the Jacobi blocks, 2 per CG iteration each way, the
+    back-substitution's exchange and the trial cost's t and q; a scalar
+    all-reduce per dot product (2 per CG iteration) and the PCG's first,
+    and the cost's pair; an all-gather of the poses (t, q, each CG iteration's p,
+    the solution, the trial t and q)."""
+    n, results = world
+    rep = out(results, "pose_iters5")
+    fb, sep = int(rep["fb"]), (int(rep["window"]) - int(rep["fb"])) // 2
+    assert int(rep["global_lm"]) > 0
+    slabs = 2 * sep * 4 * (3 + 4 + 6 + 36 + 2 * 6 * CG_ITERS + 6 + 3 + 4)
+    gathers = fb * 4 * (3 + 4 + 6 * CG_ITERS + 6 + 3 + 4)
+    assert per_iteration(results, "pose_iters") == {
+        "ppermute/gloo": (4 + 4 + 4 * CG_ITERS + 2 + 4, slabs),
+        "all_reduce/gloo": (2 + 2 * CG_ITERS, 4 * (1 + 2 * CG_ITERS + 2)),
+        "all_gather/gloo": (2 + CG_ITERS + 1 + 2, gathers)}
 
 
 def test_ranks_agree(world):
