@@ -100,7 +100,8 @@ device, and imports nothing of JAX. Phases:
                   bit; feature_performance, summarize_stats, the map as
                   PLY;
  20. pnp-icp    — EPnP, DLS-PnP, ICP and GICP on a corridor frame pair,
-                  on the card and on the CPU, against the pair's VO;
+                  each through its program, on the card and on the CPU,
+                  against the pair's VO;
  21. multi-device — the parallel modules on spawned ranks
                   (``parallel/dryrun.py``): 21a one rank in a real NCCL
                   group, the dry run's five stages, then sharded RANSAC at
@@ -175,13 +176,28 @@ device, and imports nothing of JAX. Phases:
                   bodies run eagerly, bit for bit: host ms, launches and
                   device busy per chunk, graphed and eager (at most 6
                   launches per chunk), capture seconds and pools; then
-                  run_slam_pipelined against run_slam, to the bit.
+                  run_slam_pipelined against run_slam, to the bit;
+ 27. solver-graphs — the reference's last jitted sites as programs, each
+                  against its bodies run under ``graphs.eager()`` on the
+                  same inputs and draws, bit for bit: (a) icp and gicp on
+                  phase 20's 2048-point clouds (20 iterations),
+                  epnp_camera and dls_pnp on its pair's inliers; (b)
+                  bootstrap_state for SIFT at K=256 with the plane-fit
+                  prior, for NCC with its image, and bootstrap_batched at
+                  S=4 with generators. Per case: host ms, host-issued
+                  launches and device busy per iteration or bootstrap,
+                  graphed and eager, capture seconds and pools; each
+                  graphed call under sync checks; K1/K2 none; launches
+                  within SOLVER_LAUNCHES_ITERATION, _EPNP and
+                  _BOOTSTRAP. Then a 32-frame SIFT run_slam's wall time
+                  with the bootstrap eager and as its program (a record).
 
-The drivers, bundle_adjust's LM iterations, the keyframe tracks, the
-loop-mining and keyframe-search pairs, the standalone frontends (one
-graph per chunk) and the sharded BAs (per LM iteration one graph over
-NCCL or at one rank, one per block between collectives over gloo)
-replay captured CUDA graphs (K1 and K2 inside);
+The drivers and their bootstraps, bundle_adjust's LM iterations, the
+keyframe tracks, the loop-mining and keyframe-search pairs, the
+standalone frontends (one graph per chunk), the sharded BAs (per LM
+iteration one graph over NCCL or at one rank, one per block between
+collectives over gloo), ICP, GICP, EPnP and DLS-PnP replay captured
+CUDA graphs (K1 and K2 inside);
 a program's first call captures it, waiting for the device once, and
 the phases that time a driver run it once untimed first. K1 and K2 count
 their own runs on the device (a replay counts; a program's warm-up,
@@ -2041,7 +2057,9 @@ def pnp_icp_phase(images):
     FAST features (256 per frame): pixels of frame k against the points
     of frame k−1 over the pair's RANSAC-VO inliers; ICP and GICP on 2048
     valid points sampled from the two xyz images. Each solver on the card
-    and on the CPU from the same inputs; every one against the VO."""
+    and on the CPU from the same inputs; every one against the VO.
+    Returns (the largest card-vs-CPU gap, name → (solver, its inputs on
+    the card)): phase 27's cases."""
     from pre3_tpu_torch.geometry.camera import sr4000_camera, undistort
     from pre3_tpu_torch.ops.matching import match_descriptors_auto
     from pre3_tpu_torch.vo.icp import gicp, icp
@@ -2107,7 +2125,8 @@ def pnp_icp_phase(images):
         if bool(res.ok) != bool(ref.ok) or not bool(res.ok) or (
                 dr > PNP_ICP_TOL or dt > PNP_ICP_TOL):
             raise AssertionError(f"pnp-icp: {name} disagrees card vs CPU")
-    return worst
+    return worst, {name: (fn, args) for name, (fn, args, *_) in
+                   solvers.items()}
 
 
 def md_cpu(nt) -> dict:
@@ -2945,19 +2964,22 @@ def tree_gap(a, b) -> tuple[bool, float]:
 
 def eager_run_slam(cam, feats, cfg, k, generator=None, images=None,
                    xyz_imgs=None):
-    """run_slam as a plain Python loop of slam_step, each step's outputs
-    kept in lists and stacked at the end (the port's run_slam before
-    step programs): what phase 24 holds the replays to."""
+    """run_slam as a plain Python loop of slam_step after the bootstrap's
+    body (run under ``graphs.eager()``), each step's outputs kept in lists
+    and stacked at the end (the port's run_slam before step programs):
+    what phase 24 holds the replays to."""
     from pre3_tpu_torch.ekf.slam import (
         SlamTrajectory, StepRecord, StepStats, _frame, bootstrap_state,
         slam_step,
     )
+    from pre3_tpu_torch.utils import graphs
 
     n = feats.uv.shape[0]
     pick = lambda x, i: None if x is None else x[i]  # noqa: E731
-    state = bootstrap_state(cam, _frame(feats, 0), cfg, k,
-                            xyz_img=pick(xyz_imgs, 0), image=pick(images, 0),
-                            generator=generator)
+    with graphs.eager():
+        state = bootstrap_state(cam, _frame(feats, 0), cfg, k,
+                                xyz_img=pick(xyz_imgs, 0),
+                                image=pick(images, 0), generator=generator)
     q0 = state.x[3:7]
     steps = torch.arange(1, n, dtype=torch.int32, device=feats.uv.device)
     ts, qs, stats, recs = [], [], [], []
@@ -3010,17 +3032,20 @@ def eager_run_sequence(feats, generator):
 
 def eager_batched(cam, feats, cfg, k, gens):
     """run_slam_batched as a plain loop of draw_batched and
-    slam_step_batched."""
+    slam_step_batched after the bootstraps' bodies (under
+    ``graphs.eager()``)."""
     from pre3_tpu_torch.ekf.slam import (
         SlamTrajectory, StepRecord, StepStats, bootstrap_batched,
         draw_batched, slam_step_batched,
     )
     from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.utils import graphs
 
     n_seq, n = feats.uv.shape[:2]
     dev = feats.uv.device
-    state = bootstrap_batched(cam, Features(*(x[:, 0] for x in feats)), cfg,
-                              k, generators=gens)
+    with graphs.eager():
+        state = bootstrap_batched(cam, Features(*(x[:, 0] for x in feats)),
+                                  cfg, k, generators=gens)
     q0 = state.x[:, 3:7]
     steps = torch.arange(1, n, dtype=torch.int32, device=dev)
     ts, qs, stats, recs = [], [], [], []
@@ -3096,7 +3121,7 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
     """One driver: ``run()`` graphed (its first call captures), again
     under sync checks (replays only) and against ``eager()``; K1/K2 on
     the kernels' device counters; host ms per step of the whole call
-    and of ``stepper()`` alone (the steps after the driver's eager
+    and of ``stepper()`` alone (the steps after the driver's
     bootstrap), medians of 3; ``stepper()`` profiled for the host-issued
     launches per step, device busy per step and the idle share of that
     same window, with K1 and K2 found by kernel name as often as their
@@ -3258,11 +3283,12 @@ def graph_memory(feats_all, cam, images):
 
 def online_graphs(images, cam):
     """24b: OnlineSlam (SIFT, K=64) frame by frame against its own
-    fused_fn run eagerly; process_chunk against bootstrap + frontend +
-    the eager loop; a resumed and primed run against the uninterrupted
-    one."""
+    boot_fn (under graphs.eager()) and fused_fn run eagerly;
+    process_chunk against that bootstrap + frontend + the eager loop; a
+    resumed and primed run against the uninterrupted one."""
     from pre3_tpu_torch.ekf.slam import SlamConfig, _frame
     from pre3_tpu_torch.runtime.online import OnlineSlam
+    from pre3_tpu_torch.utils import graphs
 
     n, k = GRAPH_FRAMES, GRAPH_ONLINE_LANDMARKS
     cfg = SlamConfig(min_measured=50)
@@ -3281,8 +3307,9 @@ def online_graphs(images, cam):
                           generator=gen())
         frames = [[torch.as_tensor(a[i], device="cuda") for a in host]
                   for i in range(n)]
-        state, step, prev, t, q = slam.boot_fn(*frames[0],
-                                               generator=slam.generator)
+        with graphs.eager():
+            state, step, prev, t, q = slam.boot_fn(*frames[0],
+                                                   generator=slam.generator)
         rows = [(t, q)]
         for i in range(1, n):
             state, step, prev, t, q, st, _ = slam.fused_fn(
@@ -3295,7 +3322,7 @@ def online_graphs(images, cam):
     before = captured_now()
     slam2 = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift",
                        generator=gen())
-    slam2.process(*(a[0] for a in host))  # the bootstrap, eager
+    slam2.process(*(a[0] for a in host))  # the bootstrap
     reset_launches()
     first = host_seconds(lambda: slam2.process(*(a[1] for a in host)))
     caps = new_captures(before)
@@ -3371,8 +3398,9 @@ def online_graphs(images, cam):
         s = OnlineSlam(cam, cfg=cfg, n_landmarks=k, extractor="sift",
                        generator=gen())
         frames = [torch.as_tensor(a, device="cuda") for a in host]
-        state, step, prev, t, q = s.boot_fn(*(f[0] for f in frames),
-                                            generator=s.generator)
+        with graphs.eager():
+            state, step, prev, t, q = s.boot_fn(*(f[0] for f in frames),
+                                                generator=s.generator)
         rows = [(t, q)]
         for lo in range(1, n, GRAPH_CHUNK):
             feats = s._extract(*(f[lo:lo + GRAPH_CHUNK] for f in frames))
@@ -3621,7 +3649,8 @@ def as_tensors(tree):
 
 
 def backend_case(name, run, eager, steps: int, unit: str, want, limit,
-                 verdict: int = 0):
+                 verdict: int = 0, where: str = "backend-graphs",
+                 sync_check: bool = False, eager_steps=(1, 2)):
     """One program of config #4: ``run()`` (through the program; a first
     call captures any variant not captured yet) against ``eager(steps)``,
     the plain loop of its body, on the same inputs and draws, bit for bit.
@@ -3629,64 +3658,79 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
     against ``want``; host ms per step of each (medians of 3 and of 1);
     the graphed run profiled for host-issued launches per step (less
     ``verdict`` host reads per step), device busy per step and idle
-    share, and the eager loop profiled over 1 and 2 steps, whose
-    difference is one eager step (a whole eager run holds tens of
-    thousands of launches, which the profiler takes minutes to list);
+    share, and the eager loop profiled over ``eager_steps`` (1 and 2)
+    steps, whose difference is one eager step (a whole eager run holds
+    tens of thousands of launches, which the profiler takes minutes to
+    list; a case whose step is a whole call profiles 0 (nothing) and
+    1; (0, n): per step over a whole call of n);
     the capture seconds and pool of each variant the first call
-    captured. Returns a dict of the figures."""
+    captured. ``sync_check``: the counted graphed run under torch's sync
+    debug mode "error" (a program that reads nothing to the host).
+    Returns a dict of the figures."""
     from pre3_tpu_torch.utils.profile_slice import _profiled
 
-    def counted_run(fn):
+    def counted_run(fn, check=False):
         """(fn's result, host seconds, K1/K2 on the device counters)."""
         reset_launches()
         torch.cuda.synchronize()
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
-        out = fn()
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, read_launches()
 
+    t_case = time.perf_counter()
     before = captured_now()
     t_first = host_seconds(run)
     caps = new_captures(before)
-    got, t_graph, counts = counted_run(run)
+    got, t_graph, counts = counted_run(run, sync_check)
     t_graph = statistics.median([t_graph] + [host_seconds(run)
                                              for _ in range(2)])
     launches, busy, wall, names, counted = profiled_launches(run)
     ref, t_eager, eager_counts = counted_run(lambda: eager(steps))
-    (l1, b1, _, _), (l2, b2, w2, _) = (_profiled(lambda n=n: eager(n))
-                                       for n in (1, 2))
+    e0, e1 = eager_steps
+    (l1, b1, _, _), (l2, b2, w2, _) = (
+        (0, 0.0, 0.0, None) if n == 0 else _profiled(lambda n=n: eager(n))
+        for n in eager_steps)
     equal, gap = tree_gap(as_tensors(got), as_tensors(ref))
     res = dict(name=name, equal=equal, gap=gap, k1=counts[0], k2=counts[1],
                launches=launches / steps - verdict, busy_ms=busy / steps,
                host_ms=1e3 * t_graph / steps, idle=1.0 - busy / wall,
                eager_host_ms=1e3 * t_eager / steps,
-               eager_launches=l2 - l1 - verdict,
-               eager_busy_ms=(b2 - b1) / 1e3,
+               eager_launches=(l2 - l1) / (e1 - e0) - verdict,
+               eager_busy_ms=(b2 - b1) / (e1 - e0) / 1e3,
                eager_idle=1.0 - b2 / 1e6 / w2, first_s=t_first,
-               captures=caps)
-    phase("backend-graphs", f"{name}: graphed vs eager bit-equal {equal} "
+               captures=caps, case_s=time.perf_counter() - t_case)
+    phase(where, f"{name}: graphed vs eager bit-equal {equal} "
           f"(max gap {gap:.3e}); per {unit}: graphed host "
           f"{res['host_ms']:.4f} ms, launches {res['launches']:.2f}, device "
           f"busy {res['busy_ms']:.4f} ms, idle share {res['idle']:.4f} (over "
           f"{steps}); eager host {res['eager_host_ms']:.4f} ms (over {steps}),"
           f" launches {res['eager_launches']:.2f}, device busy "
-          f"{res['eager_busy_ms']:.4f} ms (2 steps less 1), idle share "
-          f"{res['eager_idle']:.4f} (2 steps); launches less {verdict} "
+          f"{res['eager_busy_ms']:.4f} ms ({e1} steps less {e0}, per "
+          f"step), idle "
+          f"share {res['eager_idle']:.4f} ({e1} steps); launches less "
+          f"{verdict} "
           f"verdict read per {unit}; whole call graphed {1e3 * t_graph:.2f} "
           f"ms, eager {1e3 * t_eager:.2f} ms, first call {t_first:.2f} s; "
           f"K1/K2 graphed {counts}, eager {eager_counts}, profiled {names} "
-          f"against the counters {counted}, want {want}; " + "; ".join(caps))
+          f"against the counters {counted}, want {want}; case "
+          f"{res['case_s']:.1f} s; " + "; ".join(caps))
     if not equal:
-        raise AssertionError(f"backend-graphs {name}: graphed and eager "
+        raise AssertionError(f"{where} {name}: graphed and eager "
                              f"differ (max gap {gap:.3e})")
     want_names = dict(zip((K1_KERNEL, K2_KERNEL), want))
     if counts != want or eager_counts != want or counted != want_names or (
             any(names[k] == 0 for k, v in want_names.items() if v)):
-        raise AssertionError(f"backend-graphs {name}: K1/K2 {counts} "
+        raise AssertionError(f"{where} {name}: K1/K2 {counts} "
                              f"(eager {eager_counts}, profiled {names}, "
                              f"counted {counted}), want {want}")
     if res["launches"] > limit:
-        raise AssertionError(f"backend-graphs {name}: {res['launches']:.2f} "
+        raise AssertionError(f"{where} {name}: {res['launches']:.2f} "
                              f"launches per {unit} (limit {limit})")
     return res
 
@@ -3915,6 +3959,152 @@ def frontend_graphs_phase(im):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 27 (solver-graphs): the reference's last jitted sites, ICP, GICP,
+# EPnP, DLS-PnP and the bootstrap, replay their programs' graphs; each is
+# held against its bodies run under graphs.eager() on the card.
+# ---------------------------------------------------------------------------
+
+# Host-issued launches (graph launches, fills, copies), counted by the
+# profiler over one call: per iteration of an ICP, GICP or DLS-PnP call
+# (its loads, covariances or seed, finish and result copy included), per
+# EPnP call, and per bootstrap. Each replay is one graph launch, and at
+# most two fills where torch seeds a generator registered with it.
+SOLVER_ITERS = 20  # icp's and gicp's default; dls_pnp's is 10
+SOLVER_LAUNCHES_ITERATION = 5
+SOLVER_LAUNCHES_EPNP = 6
+SOLVER_LAUNCHES_BOOTSTRAP = 10
+SOLVER_BATCH_SEQS = 4
+SOLVER_RUN_FRAMES = 32
+
+
+def eager_calls(fn):
+    """n → ``fn(n)`` under ``graphs.eager()``: the program's bodies run
+    eagerly on its buffers (backend_case's plain loop)."""
+    from pre3_tpu_torch.utils import graphs
+
+    def run(n):
+        with graphs.eager():
+            return fn(n)
+
+    return run
+
+
+def repeated(fn):
+    """n → fn() n times, the last result (a per-call case's n steps)."""
+    def run(n):
+        out = None
+        for _ in range(n):
+            out = fn()
+        return out
+
+    return run
+
+
+def solver_graphs_phase(pnp_cases, im):
+    """Phase 27: (a) icp and gicp (SOLVER_ITERS iterations) on phase 20's
+    2048-point clouds, epnp_camera and dls_pnp (10 iterations) on its
+    pair's inliers; (b) bootstrap_state for SIFT at K=256 with the
+    plane-fit prior from frame 0's xyz image (as OnlineSlam calls it),
+    for NCC at K=256 with frame 0's intensity image, and
+    bootstrap_batched over S=4 corridor frames with a generator each;
+    each held to its bodies under graphs.eager() by ``backend_case``, on
+    the same inputs and the same generator seeds; (c) a 32-frame SIFT
+    run_slam (bench.py's form) timed whole with its bootstrap eager and
+    as its program. Returns a dict of the figures."""
+    from pre3_tpu_torch.ekf.slam import (
+        SlamConfig, _frame, bootstrap_batched, bootstrap_state, run_slam,
+        scan_steps,
+    )
+    from pre3_tpu_torch.frontend.pipeline import Features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils import graphs
+
+    n = SOLVER_RUN_FRAMES
+    # the frontend's programs of phase 26's 64-frame chunk and one frame
+    sift = Features(*(x[:n] for x in sift_features([x[:64] for x in im])))
+    fast = features([x[:1] for x in im])
+    graphs.clear()  # each case's first call captures its program here
+    cam = sr4000_camera()
+    gen = lambda: torch.Generator("cuda").manual_seed(GRAPH_SEED)  # noqa: E731
+    results = {}
+    for name, (fn, args) in pnp_cases.items():
+        if name == "epnp_camera":
+            call = lambda fn=fn, args=args: fn(*args)  # noqa: E731
+            case = (repeated(call), 1, "call", SOLVER_LAUNCHES_EPNP, (0, 1))
+        else:
+            iters = 10 if name == "dls_pnp" else SOLVER_ITERS
+            call = lambda n, fn=fn, args=args: fn(*args, iters=n)  # noqa
+            # DLS: eager per iteration over a whole call (its EPnP seed,
+            # ~3600 launches, in every window otherwise)
+            case = (call, iters, "iteration", SOLVER_LAUNCHES_ITERATION,
+                    (0, iters) if name == "dls_pnp" else (1, 2))
+        body, steps, unit, limit, profiled = case
+        results[name] = backend_case(
+            f"{name} ({args[0].shape[0]} points, {steps} {unit}s)",
+            lambda body=body, steps=steps: body(steps), eager_calls(body),
+            steps, unit, (0, 0), limit, where="solver-graphs",
+            sync_check=True, eager_steps=profiled)
+
+    boots = {  # name: (features, cfg, K, xyz_img, image)
+        "bootstrap SIFT": (sift, SIFT_CFG, SIFT_LANDMARKS, im[1][0], None),
+        "bootstrap NCC": (fast, NCC_CFG, EKF_LANDMARKS, im[1][0], im[0][0]),
+    }
+    for name, (feats, cfg, k, xyz, image) in boots.items():
+        cfg = SlamConfig(**cfg)
+        call = lambda feats=feats, cfg=cfg, k=k, xyz=xyz, image=image: (  # noqa
+            bootstrap_state(cam, _frame(feats, 0), cfg, k, xyz_img=xyz,
+                            image=image, generator=gen()))
+        results[name] = backend_case(
+            f"{name} (K={k}, {feats.uv.shape[1]} features, plane-fit "
+            f"prior{', init patches' if image is not None else ''})",
+            call, eager_calls(repeated(call)), 1, "bootstrap", (0, 0),
+            SOLVER_LAUNCHES_BOOTSTRAP, where="solver-graphs",
+            sync_check=True, eager_steps=(0, 1))
+    s = SOLVER_BATCH_SEQS
+    cfg = SlamConfig(**SIFT_CFG)
+    gens = lambda n: [torch.Generator("cuda").manual_seed(  # noqa: E731
+        GRAPH_SEED + i) for i in range(n)]
+    batched = lambda n: bootstrap_batched(  # noqa: E731
+        cam, Features(*(x[:n] for x in sift)), cfg, SIFT_LANDMARKS,
+        generators=gens(n))
+    # one eager bootstrap profiled: a call of one sequence (the batched
+    # call adds no work of its own per sequence)
+    results["bootstrap batched"] = backend_case(
+        f"bootstrap_batched (S={s}, K={SIFT_LANDMARKS})",
+        lambda: batched(s), eager_calls(batched), s, "bootstrap", (0, 0),
+        SOLVER_LAUNCHES_BOOTSTRAP, where="solver-graphs", sync_check=True,
+        eager_steps=(0, 1))
+
+    feats = sift
+    first, rest = _frame(feats, 0), Features(*(x[1:] for x in feats))
+    idx = torch.arange(1, n, dtype=torch.int32, device="cuda")
+
+    def eager_boot():
+        g = gen()
+        with graphs.eager():
+            state0 = bootstrap_state(cam, first, cfg, SIFT_LANDMARKS,
+                                     generator=g)
+        return scan_steps(cam, state0, first, rest, idx, cfg, generator=g,
+                          first_step=1)
+
+    graphed = lambda: run_slam(cam, feats, cfg, SIFT_LANDMARKS,  # noqa: E731
+                               generator=gen())
+    graphed()  # captures the step program and this bootstrap's
+    walls = {"eager": [], "graphed": []}
+    for _ in range(3):
+        walls["eager"].append(host_seconds(eager_boot))
+        walls["graphed"].append(host_seconds(graphed))
+    ms = {k: 1e3 * statistics.median(v) for k, v in walls.items()}
+    results["run_slam"] = ms
+    phase("solver-graphs", f"run_slam, SIFT, {n} frames, K={SIFT_LANDMARKS} "
+          f"(a record): whole call {ms['eager']:.2f} ms with the bootstrap "
+          f"eager, {ms['graphed']:.2f} ms with its program (medians of 3, "
+          f"in turns: " + ", ".join(f"{k} " + " ".join(
+              f"{1e3 * x:.2f}" for x in v) for k, v in walls.items()) + ")")
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -3987,7 +4177,7 @@ def main() -> None:
         ((kf_k1, kf_k2), warm), offline_feats = timed(
             "offline-kf", offline_kf_phase, tmp / "keyframing")
         timed("replay", replay_phase, tmp)
-    pnp_err = timed("pnp-icp", pnp_icp_phase, images)
+    pnp_err, pnp_cases = timed("pnp-icp", pnp_icp_phase, images)
 
     # ---- 21. the multi-device modules on spawned ranks ----
     md_a, md_b, _ = timed("multi-device", multi_device_phase, im, prob15,
@@ -4010,6 +4200,9 @@ def main() -> None:
 
     # ---- 26. the standalone frontends: each graphed against eager ----
     timed("frontend-graphs", frontend_graphs_phase, im)
+
+    # ---- 27. ICP, GICP, PnP and the bootstraps: graphed against eager ----
+    solver_res = timed("solver-graphs", solver_graphs_phase, pnp_cases, im)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -4094,7 +4287,10 @@ def main() -> None:
                          for k in ("growth", "eager_growth", "frontend")},
         "backend_graphs": {k: {f: v[f] for f in (
             "launches", "host_ms", "busy_ms", "eager_launches",
-            "eager_host_ms", "k1", "k2")} for k, v in backend_res.items()}}),
+            "eager_host_ms", "k1", "k2")} for k, v in backend_res.items()},
+        "solver_graphs": {k: v if k == "run_slam" else {f: v[f] for f in (
+            "launches", "host_ms", "busy_ms", "eager_launches",
+            "eager_host_ms")} for k, v in solver_res.items()}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

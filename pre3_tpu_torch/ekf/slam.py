@@ -66,8 +66,8 @@ from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.quaternion import q2v, qrotate, v2q
 from pre3_tpu_torch.utils.graphs import (
-    STAGE_ROWS, Packing, StepProgram, empty_like_tree, load, program,
-    shape_key,
+    STAGE_ROWS, Packing, StepProgram, call_program, empty_like_tree, load,
+    packed_result, program, shape_key,
 )
 from pre3_tpu_torch.vo.dead_reckoning import vo_pair
 from pre3_tpu_torch.vo.ransac import _draw_gumbel
@@ -378,7 +378,7 @@ def slam_step(
     return state, (stats, record)
 
 
-def bootstrap_state(
+def bootstrap_body(
     cam_model: Camera,
     first: Features,  # single frame
     cfg: SlamConfig = SlamConfig(),
@@ -389,9 +389,9 @@ def bootstrap_state(
     add_gumbel: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
 ) -> EkfState:
-    """Initialize the filter and seed the map from frame 0. With
-    cfg.initial_orientation and a frame-0 xyz image, x₀'s orientation is
-    the gravity-aligned plane-fit prior (identity when the fit fails)."""
+    """``bootstrap_state``'s plain body: the filter initialized and the
+    map seeded from frame 0 as plain ops. A body captured into another
+    program that needs a bootstrap calls this, never the program."""
     q0 = None
     if cfg.initial_orientation and xyz_img is not None:
         q0, _ok = initial_orientation_from_floor(
@@ -409,6 +409,60 @@ def bootstrap_state(
         depth_range_d0=cfg.depth_range_d0, image=image,
         sampling=cfg.init_sampling, gumbel=add_gumbel, generator=generator,
     )
+
+
+def _bootstrap_call(cam_model: Camera, cfg: SlamConfig, n_landmarks: int,
+                    args: tuple, generator: torch.Generator | None):
+    """One run of the bootstrap's program on one frame's ``args`` =
+    (first, xyz_img, image, plane_gumbel, add_gumbel), None where absent,
+    copied into its input buffers. Keyed by the camera, cfg,
+    ``n_landmarks``, whether a generator draws and the args' shapes.
+    Returns (the program, its state packing): the output row holds the
+    packed state."""
+    first, drawing = args[0], generator is not None
+    pstate = Packing(init_state(n_landmarks, first.desc.shape[-1],
+                                dtype=first.desc.dtype, device="meta"))
+    prog = call_program("bootstrap_state", (cam_model, cfg, n_landmarks,
+                                            drawing), args, pstate,
+                        n_generators=int(drawing))
+
+    def body(b, gens):
+        first, xyz_img, image, plane_gumbel, add_gumbel = b["inp"]
+        pstate.pack(bootstrap_body(
+            cam_model, Features(*first), cfg, n_landmarks, xyz_img, image,
+            plane_gumbel, add_gumbel, gens[0] if gens else None), b["out"])
+
+    prog.run("bootstrap", body, [] if generator is None else [generator])
+    return prog, pstate
+
+
+def bootstrap_state(
+    cam_model: Camera,
+    first: Features,  # single frame
+    cfg: SlamConfig = SlamConfig(),
+    n_landmarks: int = 64,
+    xyz_img: torch.Tensor | None = None,  # [H, W, 3] frame 0
+    image: torch.Tensor | None = None,  # [H, W] frame 0 (init patches)
+    plane_gumbel: torch.Tensor | None = None,
+    add_gumbel: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> EkfState:
+    """Initialize the filter and seed the map from frame 0. With
+    cfg.initial_orientation and a frame-0 xyz image, x₀'s orientation is
+    the gravity-aligned plane-fit prior (identity when the fit fails).
+
+    The reference compiles its bootstrap (inside ``run_slam``'s jit, as
+    ``OnlineSlam``'s boot program, in the stage pipeline). Here it is a
+    step program (``utils/graphs.py``) whose body is ``bootstrap_body``:
+    the frame and the injected draws copied in, one graph replay on the
+    card (the generator registered with it, so a replay draws what the
+    eager body draws at the same generator state), the state copied out
+    of the program's output row with one copy; eager on the CPU. The
+    returned state is the call's own."""
+    prog, pstate = _bootstrap_call(
+        cam_model, cfg, n_landmarks,
+        (first, xyz_img, image, plane_gumbel, add_gumbel), generator)
+    return packed_result(prog, pstate)
 
 
 def _frame(feats: Features, i: int) -> Features:
@@ -585,8 +639,9 @@ def run_slam(
 ) -> SlamTrajectory:
     """Run EKF-SLAM over a stacked feature sequence. ``draws`` supplies
     the random draws; whatever it leaves None comes from ``generator``.
-    The bootstrap runs eagerly, the F−1 steps as ``scan_steps``' program
-    (one graph replay per step on the card)."""
+    The bootstrap runs as its program (``bootstrap_state``), the F−1
+    steps as ``scan_steps``' program: on the card one graph replay for
+    the bootstrap and one per step."""
     n_frames = feats.uv.shape[0]
     dev = feats.uv.device
     draws = SlamDraws(steps=StepDraws()) if draws is None else draws
@@ -625,10 +680,6 @@ def no_vmap_fallback():
         torch._C._functorch._set_vmap_fallback_enabled(prev)
 
 
-def _stack(rows, cls, dim: int = 0):
-    return cls(*(torch.stack(f, dim) for f in zip(*rows)))
-
-
 def _check_batched(cfg: SlamConfig) -> None:
     if cfg.matcher != "desc" or cfg.heading_update_every > 0:
         raise ValueError("run_slam_batched runs the descriptor matcher "
@@ -644,14 +695,24 @@ def bootstrap_batched(
     generators: list[torch.Generator] | None = None,
 ) -> EkfState:
     """``bootstrap_state`` of each sequence, stacked on a leading S axis
-    (no plane-fit prior: the batched path takes no xyz images)."""
+    (no plane-fit prior: the batched path takes no xyz images): S runs of
+    the one bootstrap program, sequence s with ``generators[s]``, each
+    state copied from the program's output row into row s of the call's
+    own storage."""
     _check_batched(cfg)
     n_seq = first.uv.shape[0]
-    return _stack([bootstrap_state(
-        cam_model, Features(*(x[s] for x in first)), cfg, n_landmarks,
-        add_gumbel=None if boot_add is None else boot_add[s],
-        generator=None if generators is None else generators[s])
-        for s in range(n_seq)], EkfState)
+
+    rows = None
+    for s in range(n_seq):
+        prog, pstate = _bootstrap_call(
+            cam_model, cfg, n_landmarks,
+            (Features(*(x[s] for x in first)), None, None, None,
+             None if boot_add is None else boot_add[s]),
+            None if generators is None else generators[s])
+        if rows is None:
+            rows = pstate.rows(n_seq, device=first.uv.device)
+        rows[s].copy_(prog.buffers["out"])
+    return pstate.unpack(rows)
 
 
 def draw_batched(

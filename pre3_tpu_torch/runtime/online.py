@@ -31,8 +31,9 @@ once per frame and never waits. Here:
     storage that no later frame overwrites, and reading them
     (``trajectory``) is what synchronises.
 
-The bootstrap frame runs eagerly (``boot_fn``), once, its frontend
-through the frontend's program at one frame. The frame program's body
+The bootstrap frame (``boot_fn``) runs once: the frontend's program at
+one frame, then the bootstrap's (``bootstrap_state``), as the reference
+runs its compiled boot program. The frame program's body
 (``fused_fn``) calls the frontend's plain body (``fast_features`` or
 ``sift_features``): a program cannot run inside another's capture.
 Random draws come from ``generator`` (a ``torch.Generator`` on the
@@ -215,8 +216,9 @@ class OnlineSlam:
 
     def boot_fn(self, intensity, xyz, conf, draws: SlamDraws | None = None,
                 generator: torch.Generator | None = None):
-        """The bootstrap frame, eagerly: device frames [H, W], [H, W, 3],
-        [H, W] → (state, step, feats, t, q)."""
+        """The bootstrap frame through the frontend's program and the
+        bootstrap's: device frames [H, W], [H, W, 3], [H, W] → (state,
+        step, feats, t, q)."""
         draws = draws if draws is not None else SlamDraws(StepDraws())
         feats = _frame(self._extract(intensity[None], xyz[None],
                                      conf[None]), 0)

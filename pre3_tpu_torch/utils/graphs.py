@@ -57,6 +57,10 @@ counter (``uncounted``).
 
 Programs are cached by key (``program``): the function, its config and
 one step's shapes, dtypes and device. ``clear()`` drops them.
+``call_program`` serves a function whose call is a few runs of its
+variants (ICP, GICP, PnP, the bootstrap): its inputs copied in by one
+grouped copy per dtype, its packed result row out by one copy
+(``packed_result``).
 
 ``eager()`` runs every program's bodies eagerly on its buffers on the
 card too, as on the CPU, while it is open: the plain loop a smoke run
@@ -360,6 +364,37 @@ def load_grouped(dst: list, src: list) -> None:
         ss.append(s)
     for ds, ss in groups.values():
         torch._foreach_copy_(ds, ss)
+
+
+def call_program(name: str, cfg: tuple, inputs: tuple, out: Packing,
+                 carry: tuple[str, ...] = (),
+                 n_generators: int = 0) -> StepProgram:
+    """The program of a function whose call is a few runs of its variants
+    (a solver, the bootstrap), keyed by (``name``, ``cfg``, the inputs'
+    shapes, None where absent), with ``inputs`` (a tuple of tensors,
+    NamedTuples of them and None) copied into its ``inp`` buffers of the
+    same structure by one grouped copy per dtype. Its ``out`` buffer is
+    one row of ``out``, which the caller copies out in one copy
+    (``packed_result``); ``carry`` names the buffers its variants update
+    in place; ``n_generators`` as ``StepProgram``'s."""
+    dev = next(t for t in tree_leaves(inputs) if t is not None).device
+
+    def make():
+        bufs = dict(inp=empty_like_tree(tuple(inputs)),
+                    out=out.rows(device=dev))
+        return StepProgram(name, bufs, dev, n_generators, carry=carry)
+
+    prog = program((name, cfg, shape_key(inputs)), make)
+    given = [(d, s) for d, s in zip(tree_leaves(prog.buffers["inp"]),
+                                    tree_leaves(inputs)) if s is not None]
+    load_grouped(*map(list, zip(*given)))
+    return prog
+
+
+def packed_result(prog: StepProgram, out: Packing) -> Any:
+    """The tree in ``prog``'s ``out`` row, as views of the call's own copy
+    of it (one copy): a later call rewrites the buffer, not this."""
+    return out.unpack(prog.buffers["out"].clone())
 
 
 def keep(buffers: dict, name: str, value: Any) -> Any:

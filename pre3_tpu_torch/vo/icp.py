@@ -7,15 +7,25 @@ ICP is its verification oracle, not its estimator. Same role here.
 Nearest neighbours are one [N, M] distance matrix per iteration (the
 ‖a‖² − 2a·b + ‖b‖² expansion, f32 matmul), correspondences are trimmed by
 a distance threshold, and the refit is Kabsch (ops/svd3) for point to
-point or one 6×6 normal-equation solve for GICP, for a fixed iteration
-count (the reference's ``lax.scan`` is a loop of the same length). GICP
-covariances (Segal et al.: Σ = V·diag(ε,1,1)·Vᵀ from k-NN PCA) are
-computed once per cloud with a batched 3×3 ``eigh``; its eigenvectors are
-unique only up to sign, which Σ does not see. The k nearest neighbours
-come from ``utils/topk.stable_topk``: where points are invalid a row is
-all −inf, and the reference's ``lax.top_k`` then takes the lowest
-indices. ``torch.linalg.eigh`` checks its result and waits for the card;
-these are offline solvers, off every per-frame path.
+point or one 6×6 normal-equation solve for GICP. GICP covariances
+(Segal et al.: Σ = V·diag(ε,1,1)·Vᵀ from k-NN PCA) depend only on the
+normal n, the smallest axis: Σ = I − (1 − ε)·n·nᵀ for any orthonormal V.
+n comes from the capture-safe batched ``ops/sym_eig.sym3_eigh``, once
+per cloud; its sign, like the other axes, Σ does not see. The k nearest
+neighbours come from ``utils/topk.stable_topk``: where points are
+invalid a row is all −inf, and the reference's ``lax.top_k`` then takes
+the lowest indices.
+
+The reference jits ``icp`` and ``gicp`` whole, the iterations one
+``lax.scan``. Here each is a step program (``utils/graphs.py``) keyed by
+the clouds' shapes, whether ``r0``/``t0`` are given, ``trim_dist`` and
+``min_inliers`` (GICP's also by ``k_neighbors`` and ``eps``), never by
+``iters``. A call copies its inputs and the start (r0, t0, or the
+identity and zero) into the program's buffers in one grouped copy; GICP
+replays its ``covariances`` graph once; the ``iteration`` graph (NN,
+trim, refit) is replayed ``iters`` times on the carry (r, t), and the
+``finish`` graph (rmse, inlier count, ok) once into a packed result row,
+which is copied out. On the CPU the same bodies run eagerly.
 
 Convention matches vo/rigid.py: solves P ≈ R·Q + t (frame-2 → frame-1).
 """
@@ -26,6 +36,11 @@ from typing import NamedTuple
 
 import torch
 
+from pre3_tpu_torch.ops.sym_eig import sym3_eigh
+from pre3_tpu_torch.utils.device import cached_constant
+from pre3_tpu_torch.utils.graphs import (
+    Packing, call_program, keep, load, packed_result,
+)
 from pre3_tpu_torch.utils.topk import stable_topk
 from pre3_tpu_torch.vo.rigid import kabsch
 
@@ -55,10 +70,14 @@ def _nn(a: torch.Tensor, b: torch.Tensor, valid_b: torch.Tensor):
     return idx, torch.sqrt(torch.clamp(best, min=0.0))
 
 
-def _init(r0, t0, like):
-    r = _eye(3, like) if r0 is None else r0
-    t = torch.zeros(3, dtype=like.dtype, device=like.device) if t0 is None \
-        else t0
+def _start(r0, t0, like):
+    """(r0, t0), the identity and zero (constants on ``like``'s device)
+    where not given."""
+    dev, dt = like.device, like.dtype
+    r = r0 if r0 is not None else cached_constant(
+        ("icp_r0", dt), lambda: torch.eye(3, dtype=dt), dev)
+    t = t0 if t0 is not None else cached_constant(
+        ("icp_t0", dt), lambda: torch.zeros(3, dtype=dt), dev)
     return r, t
 
 
@@ -72,6 +91,54 @@ def _finish(p, q, valid_p, valid_q, r, t, trim_dist, min_inliers):
                      n_inliers=n_inl.to(torch.int32))
 
 
+def _icp_step(p, q, valid_p, valid_q, r, t, trim_dist):
+    """One ICP iteration: (r, t) refit to the trimmed nearest neighbours,
+    kept where the fit is degenerate."""
+    idx, dist = _nn(q @ r.T + t, p, valid_p)
+    w = (valid_q & (dist < trim_dist)).to(p.dtype)
+    fit = kabsch(p[idx], q, w)
+    return torch.where(fit.ok, fit.r, r), torch.where(fit.ok, fit.t, t)
+
+
+def _result_packing(dt: torch.dtype) -> Packing:
+    e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype)  # noqa
+    return Packing(IcpResult(e(3, 3), e(3), e(dtype=torch.bool), e(),
+                             e(dtype=torch.int32)))
+
+
+def _solve(name: str, cfg: tuple, variants: list, body, pout: Packing,
+           p, q, valid_p, valid_q, r0, t0) -> IcpResult:
+    """``icp``'s or ``gicp``'s call: the clouds and the start (r, t) into
+    the program of (``name``, ``cfg``, whether r0/t0 are given, the
+    shapes), one run of ``body(variant)`` per variant, the result row
+    copied out."""
+    prog = call_program(name, (cfg, r0 is None, t0 is None),
+                        [p, q, valid_p, valid_q, *_start(r0, t0, p)], pout,
+                        carry=("inp",))
+    for v in variants:
+        prog.run(v, body(v))
+    return packed_result(prog, pout)
+
+
+def _icp_body(trim_dist: float, min_inliers: int, pout: Packing):
+    """``icp``'s program body per variant: ``iteration`` updates the
+    carry (r, t, the last inputs), ``finish`` packs the result row."""
+
+    def make(variant: str):
+        def body(b, gens):
+            p, q, valid_p, valid_q, r, t = b["inp"]
+            if variant == "finish":
+                pout.pack(_finish(p, q, valid_p, valid_q, r, t, trim_dist,
+                                  min_inliers), b["out"])
+            else:
+                load((r, t), _icp_step(p, q, valid_p, valid_q, r, t,
+                                       trim_dist))
+
+        return body
+
+    return make
+
+
 def icp(
     p: torch.Tensor,  # [N, 3] target (frame 1)
     q: torch.Tensor,  # [M, 3] source (frame 2)
@@ -83,15 +150,13 @@ def icp(
     t0: torch.Tensor | None = None,
     min_inliers: int = 6,
 ) -> IcpResult:
-    """Align q onto p. Optional initial guess (icp_with_init.m)."""
-    r, t = _init(r0, t0, p)
-    for _ in range(iters):
-        idx, dist = _nn(q @ r.T + t, p, valid_p)
-        w = (valid_q & (dist < trim_dist)).to(p.dtype)
-        fit = kabsch(p[idx], q, w)
-        r = torch.where(fit.ok, fit.r, r)
-        t = torch.where(fit.ok, fit.t, t)
-    return _finish(p, q, valid_p, valid_q, r, t, trim_dist, min_inliers)
+    """Align q onto p. Optional initial guess (icp_with_init.m). One
+    ``iteration`` replay per iteration and a ``finish`` (see the module
+    docstring); the result is the call's own copy."""
+    cfg, pout = (trim_dist, min_inliers), _result_packing(p.dtype)
+    return _solve("icp", cfg, ["iteration"] * iters + ["finish"],
+                  _icp_body(*cfg, pout), pout, p, q, valid_p, valid_q, r0,
+                  t0)
 
 
 def surface_covariances(
@@ -102,7 +167,8 @@ def surface_covariances(
 ) -> torch.Tensor:
     """Per-point GICP covariance Σᵢ = V·diag(ε, 1, 1)·Vᵀ where V are the
     local k-NN PCA axes (ascending eigenvalue — the first axis is the
-    surface normal). One [N, N] distance matmul + batched 3×3 eigh."""
+    surface normal), as I − (1 − ε)·n·nᵀ from the normal n alone. One
+    [N, N] distance matmul + the batched 3×3 ``sym3_eigh``."""
     d2 = torch.where(valid[None, :] & valid[:, None], _dist2(pts, pts),
                      torch.inf)
     _, idx = stable_topk(-d2, k)  # [N, k] nearest (incl. self)
@@ -110,9 +176,9 @@ def surface_covariances(
     mu = torch.mean(nb, dim=1, keepdim=True)
     c = torch.einsum("nka,nkb->nab", nb - mu, nb - mu) / k
     # regularize: degenerate neighborhoods fall back to isotropic
-    _, v = torch.linalg.eigh(c + 1e-9 * _eye(3, pts))  # v[:, :, 0] = normal
-    d = torch.tensor([eps, 1.0, 1.0], dtype=pts.dtype).to(pts.device)
-    return torch.einsum("nab,b,ncb->nac", v, d, v)  # [N, 3, 3]
+    _, v = sym3_eigh(c + 1e-9 * _eye(3, pts))
+    n = v[..., 0]  # the normal: the smallest axis
+    return _eye(3, pts) - (1.0 - eps) * n[:, :, None] * n[:, None, :]
 
 
 def _so3_exp(w: torch.Tensor) -> torch.Tensor:
@@ -140,6 +206,53 @@ def _neg_skew(a: torch.Tensor) -> torch.Tensor:
     return -sk
 
 
+def _gicp_step(p, q, valid_p, valid_q, cp, cq, r, t, trim_dist):
+    """One GICP iteration: NN correspondences, then one Gauss–Newton step
+    on the manifold, kept where at least 3 correspondences survive."""
+    eye3 = _eye(3, p)
+    q_w = q @ r.T + t
+    idx, dist = _nn(q_w, p, valid_p)
+    w = (valid_q & (dist < trim_dist)).to(p.dtype)  # [M]
+    d = p[idx] - q_w  # [M, 3] residuals
+    m, _ = torch.linalg.inv_ex(
+        cp[idx] + torch.einsum("ab,nbc,dc->nad", r, cq, r) + 1e-9 * eye3)
+    m = m * w[:, None, None]
+    # J_i = ∂(Rq+t)/∂[dt, dθ] = [I | −skew(q_w)] (left perturbation)
+    jac = torch.cat([eye3.expand(q.shape[0], 3, 3), _neg_skew(q_w)],
+                    dim=-1)  # [M, 3, 6]
+    h = torch.einsum("nia,nij,njb->ab", jac, m, jac) + 1e-8 * _eye(6, p)
+    g = torch.einsum("nia,nij,nj->a", jac, m, d)
+    delta = torch.linalg.solve_ex(h, g)[0]  # [6]
+    ok = torch.sum(w) >= 3
+    return (torch.where(ok, _so3_exp(delta[3:]) @ r, r),
+            torch.where(ok, t + delta[:3], t))
+
+
+def _gicp_body(trim_dist: float, min_inliers: int, k_neighbors: int,
+               eps: float, pout: Packing):
+    """``gicp``'s program body per variant: ``covariances`` puts both
+    clouds' Σ into the ``cov`` buffers, ``iteration`` updates the carry
+    (r, t, the last inputs), ``finish`` packs the result row."""
+
+    def make(variant: str):
+        def body(b, gens):
+            p, q, valid_p, valid_q, r, t = b["inp"]
+            if variant == "covariances":
+                keep(b, "cov", (
+                    surface_covariances(p, valid_p, k=k_neighbors, eps=eps),
+                    surface_covariances(q, valid_q, k=k_neighbors, eps=eps)))
+            elif variant == "iteration":
+                load((r, t), _gicp_step(p, q, valid_p, valid_q, *b["cov"],
+                                        r, t, trim_dist))
+            else:
+                pout.pack(_finish(p, q, valid_p, valid_q, r, t, trim_dist,
+                                  min_inliers), b["out"])
+
+        return body
+
+    return make
+
+
 def gicp(
     p: torch.Tensor,  # [N, 3] target (frame 1)
     q: torch.Tensor,  # [M, 3] source (frame 2)
@@ -155,26 +268,13 @@ def gicp(
 ) -> IcpResult:
     """Plane-to-plane GICP: minimizes Σ dᵀ(Σp + RΣqRᵀ)⁻¹d over (R, t) by
     iterating NN correspondence + one Gauss-Newton step on the manifold
-    (δ = [dt, dθ], batched 3×3 inverses, one 6×6 solve per iteration)."""
-    cp = surface_covariances(p, valid_p, k=k_neighbors, eps=eps)
-    cq = surface_covariances(q, valid_q, k=k_neighbors, eps=eps)
-    r, t = _init(r0, t0, p)
-    eye3 = _eye(3, p)
-    for _ in range(iters):
-        q_w = q @ r.T + t
-        idx, dist = _nn(q_w, p, valid_p)
-        w = (valid_q & (dist < trim_dist)).to(p.dtype)  # [M]
-        d = p[idx] - q_w  # [M, 3] residuals
-        m, _ = torch.linalg.inv_ex(
-            cp[idx] + torch.einsum("ab,nbc,dc->nad", r, cq, r) + 1e-9 * eye3)
-        m = m * w[:, None, None]
-        # J_i = ∂(Rq+t)/∂[dt, dθ] = [I | −skew(q_w)] (left perturbation)
-        jac = torch.cat([eye3.expand(q.shape[0], 3, 3), _neg_skew(q_w)],
-                        dim=-1)  # [M, 3, 6]
-        h = torch.einsum("nia,nij,njb->ab", jac, m, jac) + 1e-8 * _eye(6, p)
-        g = torch.einsum("nia,nij,nj->a", jac, m, d)
-        delta = torch.linalg.solve_ex(h, g)[0]  # [6]
-        ok = torch.sum(w) >= 3
-        r = torch.where(ok, _so3_exp(delta[3:]) @ r, r)
-        t = torch.where(ok, t + delta[:3], t)
-    return _finish(p, q, valid_p, valid_q, r, t, trim_dist, min_inliers)
+    (δ = [dt, dθ], batched 3×3 inverses, one 6×6 solve per iteration).
+    The covariances once, one ``iteration`` replay per iteration and a
+    ``finish`` (see the module docstring); the result is the call's own
+    copy."""
+    cfg = (trim_dist, min_inliers, k_neighbors, eps)
+    pout = _result_packing(p.dtype)
+    return _solve("gicp", cfg,
+                  ["covariances"] + ["iteration"] * iters + ["finish"],
+                  _gicp_body(*cfg, pout), pout, p, q, valid_p, valid_q, r0,
+                  t0)

@@ -474,8 +474,9 @@ def test_program_run_slam_matches_jax():
 
 def test_one_program_serves_every_length(seq):
     """Programs are keyed by one step's shapes: run_slam over 6 frames and
-    then over 4 and 3 uses the one program of the first call, each run
-    bit-equal to the plain loop; VO run_sequence likewise."""
+    then over 4 and 3 uses the one step program of the first call (and
+    its one bootstrap program), each run bit-equal to the plain loop; VO
+    run_sequence likewise."""
     feats, cfg, _, _ = _case(seq, "fast")
     cam = tcamera()
     graphs.clear()
@@ -486,12 +487,13 @@ def test_one_program_serves_every_length(seq):
         ref, _ = _step_loop(cam, cut(n), cfg, K,
                             generator=torch.Generator().manual_seed(14))
         _bit_equal(got, ref)
-        assert [p.name for p in graphs.programs()] == ["scan_steps"]
+        assert [p.name for p in graphs.programs()] == ["bootstrap_state",
+                                                       "scan_steps"]
     for n in (N_FRAMES, 3):
         run_sequence(cut(n), generator=torch.Generator().manual_seed(15),
                      batch=64)
-    assert sorted(p.name for p in graphs.programs()) == ["run_sequence",
-                                                         "scan_steps"]
+    assert sorted(p.name for p in graphs.programs()) == [
+        "bootstrap_state", "run_sequence", "scan_steps"]
 
 
 def test_packing_round_trip():
