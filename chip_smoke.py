@@ -190,7 +190,19 @@ device, and imports nothing of JAX. Phases:
                   graphed call under sync checks; K1/K2 none; launches
                   within SOLVER_LAUNCHES_ITERATION, _EPNP and
                   _BOOTSTRAP. Then a 32-frame SIFT run_slam's wall time
-                  with the bootstrap eager and as its program (a record).
+                  with the bootstrap eager and as its program (a record);
+ 28. tracer     — the tracer (utils/profiling.py) on phase 10's SIFT
+                  run_slam: the probe kernel neither built nor loaded
+                  before tracing turns on; a traced run bit-equal to an
+                  untraced one; the step replays timed by their probes
+                  (scan_steps.begin → .end) against CUDA events around
+                  the same replays (a synchronize per step, a spin
+                  kernel ahead of each so that the launch is queued
+                  before the first event fires): the means
+                  within 2% or 10 µs (TRACER_TOL); slam_step's stages
+                  and the write-out within 1% of the replay; no probe
+                  dropped; the clock mapping's uncertainty and the
+                  smallest probe difference printed.
 
 The drivers and their bootstraps, bundle_adjust's LM iterations, the
 keyframe tracks, the loop-mining and keyframe-search pairs, the
@@ -495,6 +507,14 @@ WALK_FRAMES, WALK_ATE_MAX = 32, 0.5
 # is below this relative gap may legitimately resolve either way.
 K2_MARGIN = 1e-5
 
+# Phase 28: probe-timed step replays against CUDA events around them
+# (a relative and an absolute tolerance: either holds), and the stages'
+# sum against the replay.
+TRACER_TOL, TRACER_TOL_US, TRACER_CLOSURE = 0.02, 10.0, 0.01
+# A spin ahead of each timed replay (~10 ms at 1980 MHz): longer than
+# the host takes to launch the step's graph, which in a whole smoke run
+# took up to ~2 ms (0.43 ms on average) against a 0.5 ms spin.
+TRACER_SPIN_CYCLES = 20_000_000
 # Kernel timing (phase 3): device time by graph replay (see device_ms).
 GRAPH_CALLS, GRAPH_REPLAYS, GRAPH_READINGS = 20, 10, 5
 # Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet).
@@ -1360,6 +1380,105 @@ def sift_slice(im, gt):
         raise AssertionError(f"SIFT ATE {ate:.4f} m outside "
                              f"{SIFT_ATE_CENTER} ± {SIFT_ATE_HALF_WIDTH}")
     return k1, k2, out
+
+
+def tracer_phase(im):
+    """Phase 28: the tracer on the flagship's run_slam over phase 10's
+    corridor (see the module docstring)."""
+    from pre3_tpu_torch.ekf.slam import STAGES, SlamConfig, run_slam
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+    from pre3_tpu_torch.utils import graphs, profiling
+    from torch.utils._pytree import tree_leaves
+
+    def probe_loaded() -> bool:
+        return "libprobe_" in Path("/proc/self/maps").read_text()
+
+    feats = sift_features(im)
+
+    def run():
+        return run_slam(sr4000_camera(), feats, SlamConfig(**SIFT_CFG),
+                        n_landmarks=SIFT_LANDMARKS,
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            SIFT_SEED))
+
+    plain = run()
+    torch.cuda.synchronize()
+    if probe_loaded():
+        raise AssertionError("tracer: the probe kernel was loaded with "
+                             "tracing off")
+    replay, events = graphs.StepProgram.replay, []
+
+    def timed(self, variant, generators=()):
+        if self.name != "scan_steps":
+            return replay(self, variant, generators)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        # the device spins while the host launches the replay, so the
+        # events time the device's work, not the host's launch
+        torch.cuda._sleep(TRACER_SPIN_CYCLES)
+        a.record()
+        replay(self, variant, generators)
+        b.record()
+        torch.cuda.synchronize()
+        events.append(1e3 * a.elapsed_time(b))  # µs
+
+    t0 = time.perf_counter()
+    with profiling.tracing():
+        traced = run()
+        graphs.StepProgram.replay = timed
+        try:
+            timed_run = run()
+        finally:
+            graphs.StepProgram.replay = replay
+    ex = profiling.export()
+    for name, got in (("traced", traced), ("timed", timed_run)):
+        for a, b in zip(tree_leaves(plain), tree_leaves(got)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"tracer: the {name} run_slam differs "
+                                     f"from the untraced one")
+    probes = ex["probes"]
+    begins = [i for i, p in enumerate(probes) if p[0] == "scan_steps.begin"]
+    ends = [i for i, p in enumerate(probes) if p[0] == "scan_steps.end"]
+    steps = N_FRAMES - 1
+    if len(begins) != 2 * steps or len(ends) != 2 * steps:
+        raise AssertionError(f"tracer: {len(begins)} step begin probes and "
+                             f"{len(ends)} end probes for 2 × {steps} steps")
+    pairs = list(zip(begins, ends))
+    replay_us = [(probes[e][1] - probes[b][1]) / 1e3 for b, e in pairs]
+    stage_us = {s: 0.0 for s in STAGES}
+    for b, e in pairs:
+        for p, q in zip(probes[b + 1:e], probes[b + 2:e + 1]):
+            stage_us[p[0].split(".")[1]] += (q[1] - p[1]) / 1e3
+    n = len(pairs)
+    mean_probe = sum(replay_us[steps:]) / steps
+    mean_event = sum(events) / len(events)
+    worst = max(abs(a - b) for a, b in zip(replay_us[steps:], events))
+    closure = sum(stage_us.values()) / sum(replay_us)
+    diffs = [q[1] - p[1] for p, q in zip(probes, probes[1:]) if q[1] > p[1]]
+    clock = ex["clock"]
+    phase("tracer", f"{ex['counters'].get('graphs.replays', 0)} replays "
+          f"traced in {time.perf_counter() - t0:.2f} s; step replay by probes "
+          f"{mean_probe:.2f} µs against CUDA events {mean_event:.2f} µs "
+          f"(sync per step; the widest step apart {worst:.2f} µs); the "
+          f"untimed traced run's {sum(replay_us[:steps]) / steps:.2f} µs; "
+          f"stages per step " + ", ".join(
+              f"{k} {v / n:.2f}" for k, v in stage_us.items()) +
+          f" µs: {closure:.4%} of the replay; probes dropped "
+          f"{ex['dropped']}; clock offset uncertainty "
+          f"{clock['uncertainty_ns']} ns, drift {clock['drift_ns']} ns; "
+          f"smallest probe difference {min(diffs)} ns; bit-equal traced, "
+          f"timed and untraced trajectories")
+    if ex["dropped"]:
+        raise AssertionError(f"tracer: {ex['dropped']} probes dropped")
+    if len(events) != steps or abs(mean_probe - mean_event) > max(
+            TRACER_TOL * mean_event, TRACER_TOL_US):
+        raise AssertionError(f"tracer: probes {mean_probe:.2f} µs against "
+                             f"events {mean_event:.2f} µs per step "
+                             f"({len(events)} timed)")
+    if abs(closure - 1.0) > TRACER_CLOSURE:
+        raise AssertionError(f"tracer: the stages sum to {closure:.4%} of "
+                             f"the replay")
+    return dict(probe_us=mean_probe, event_us=mean_event,
+                stages_us={k: v / n for k, v in stage_us.items()})
 
 
 def online_phase(images, gt):
@@ -4203,6 +4322,9 @@ def main() -> None:
 
     # ---- 27. ICP, GICP, PnP and the bootstraps: graphed against eager ----
     solver_res = timed("solver-graphs", solver_graphs_phase, pnp_cases, im)
+
+    # ---- 28. the tracer: probes inside the step program's graphs ----
+    timed("tracer", tracer_phase, im)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 

@@ -1,0 +1,10 @@
+"""Device ms per SLAM step of slam_step's stage ``update`` (the li update, the hi rescue and the hi update):
+from its probe to the next one, on the device's clock, summed over the
+program trace's steps (port_bench/program_trace.py) and divided by
+them."""
+
+from port_bench.program_trace import reading
+
+
+def read(trace):
+    return reading(trace, "slam_step.update_ms")

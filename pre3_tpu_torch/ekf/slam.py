@@ -33,6 +33,19 @@ graph with the plane fit, so the 512-hypothesis fit runs on 1 step in N
 only. JAX's threefry draws
 cannot be reproduced in torch, so every random draw is an input
 (``draws=``) or comes from a ``torch.Generator``.
+
+While the tracer is on (``utils/profiling``) ``slam_step`` marks its
+stages with device probes (``STAGES``; a stage the configuration skips
+marks nothing), each stage running from its probe to the next:
+``slam_step.vo`` (the draws and ``vo_pair`` with its covariance),
+``.predict`` (the prediction and the v/ω refresh), ``.match`` (the
+measurement prediction and the map matching), ``.ransac`` (1-point
+RANSAC), ``.update`` (the li update, the hi rescue and the hi update),
+``.map`` (bookkeeping, deletion, conversion, adds and the attitude
+update) and ``.out`` (the step's outputs, to the program's ``.end``
+probe). ``run_slam`` is a span and a request of its own, with the spans
+``bootstrap_state`` and ``scan.stage_rows`` (packing ``STAGE_ROWS``
+steps' input rows) inside.
 """
 
 from __future__ import annotations
@@ -65,12 +78,17 @@ from pre3_tpu_torch.ekf.update import (
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.quaternion import q2v, qrotate, v2q
+from pre3_tpu_torch.utils import profiling
 from pre3_tpu_torch.utils.graphs import (
     STAGE_ROWS, Packing, StepProgram, call_program, empty_like_tree, load,
     packed_result, program, shape_key,
 )
 from pre3_tpu_torch.vo.dead_reckoning import vo_pair
 from pre3_tpu_torch.vo.ransac import _draw_gumbel
+
+# slam_step's stages, in the order their probes fire (see the module
+# docstring); "out" runs to the step program's end probe
+STAGES = ("vo", "predict", "match", "ransac", "update", "map", "out")
 
 
 class SlamConfig(NamedTuple):
@@ -234,12 +252,15 @@ def slam_step(
         raise ValueError("heading_update_every > 0 needs per-frame xyz "
                          "images and the step's host index (host_step)")
     dev, dt = state.x.device, state.x.dtype
+    if cfg.motion_model != "cv":
+        profiling.probe("slam_step.vo", dev)
     draws = draw_step(cfg, frame.uv.shape[0], state.n_landmarks, generator,
                       dev, draws)
 
     # 1. VO control input + prediction, with the estimated VO covariance
     # (mapped [dt, dω] → [dX, dq]) plus the reference's floor as noise
     if cfg.motion_model == "cv":
+        profiling.probe("slam_step.predict", dev)
         state = predict_cv(state, dt=cfg.dt, std_a=cfg.std_a,
                            std_alpha=cfg.std_alpha)
         vo_ok = torch.zeros((), dtype=torch.bool, device=dev)
@@ -250,6 +271,7 @@ def slam_step(
             batch=cfg.vo_batch, with_covariance=cfg.vo_noise_from_covariance,
             range_weighted_refit=cfg.vo_range_weighted,
         )
+        profiling.probe("slam_step.predict", dev)
         unit7 = torch.zeros(7, dtype=dt, device=dev)
         unit7[3].fill_(1.0)
         u = torch.where(vo.ok, torch.cat([vo.delta.t, vo.delta.q]), unit7)
@@ -287,6 +309,7 @@ def slam_step(
 
     # 2. measurement prediction + matching of the map: descriptors, or
     # the warped-patch correlation scan
+    profiling.probe("slam_step.match", dev)
     obs = predict_measurements(cam_model, state, std_z=cfg.std_z)
     if cfg.matcher == "ncc_warp":
         # raw xyz has NaN background pixels: sanitize before sampling
@@ -307,25 +330,30 @@ def slam_step(
         li, hi = none, none
     elif cfg.est_method == "pure_ekf":
         # one update on every IC match, no RANSAC gating
+        profiling.probe("slam_step.update", dev)
         li, hi = obs.ic, none
         state = kalman_update(state, obs, li, std_z=cfg.std_z, max_slots=ms)
     elif cfg.est_method == "iekf":
         # iterated EKF on every IC match, relinearized at each iterate
+        profiling.probe("slam_step.update", dev)
         li, hi = obs.ic, none
         state = iterated_kalman_update(cam_model, state, obs.z, li,
                                        std_z=cfg.std_z)
     else:
         # 1PRE: li update on the prior, then hi rescue on the posterior
+        profiling.probe("slam_step.ransac", dev)
         li = one_point_ransac(
             cam_model, state, obs, batch=cfg.ransac_batch, std_z=cfg.std_z,
             n_points=cfg.ransac_points, max_slots=ms, gumbel=draws.ransac,
         )
+        profiling.probe("slam_step.update", dev)
         state = kalman_update(state, obs, li, std_z=cfg.std_z, max_slots=ms)
         hi, obs2 = rescue_hi_inliers(cam_model, state, obs, li,
                                      std_z=cfg.std_z)
         state = kalman_update(state, obs2, hi, std_z=cfg.std_z, max_slots=ms)
 
     # 5. bookkeeping
+    profiling.probe("slam_step.map", dev)
     measured = li | hi
     state = state._replace(
         times_predicted=state.times_predicted + obs.visible.to(torch.int32),
@@ -375,6 +403,7 @@ def slam_step(
     )
     record = StepRecord(z=obs.z, z_xyz=obs.z_xyz, measured=measured,
                         init_frame=state.init_frame, visible=obs.visible)
+    profiling.probe("slam_step.out", dev)
     return state, (stats, record)
 
 
@@ -459,10 +488,11 @@ def bootstrap_state(
     eager body draws at the same generator state), the state copied out
     of the program's output row with one copy; eager on the CPU. The
     returned state is the call's own."""
-    prog, pstate = _bootstrap_call(
-        cam_model, cfg, n_landmarks,
-        (first, xyz_img, image, plane_gumbel, add_gumbel), generator)
-    return packed_result(prog, pstate)
+    with profiling.span("bootstrap_state"):
+        prog, pstate = _bootstrap_call(
+            cam_model, cfg, n_landmarks,
+            (first, xyz_img, image, plane_gumbel, add_gumbel), generator)
+        return packed_result(prog, pstate)
 
 
 def _frame(feats: Features, i: int) -> Features:
@@ -572,16 +602,17 @@ def _scan(cam_model, state, prev_last, feats, steps, cfg, draws, generator,
     for lo in range(0, c, STAGE_ROWS):
         hi = min(c, lo + STAGE_ROWS)
         rows = in_rows[:hi - lo]
-        frame, step, d, image, xyz = pin.unpack(rows)
-        load((frame, step, d._replace(heading=None), image, xyz), (
-            Features(*(_slice(x, lo, hi) for x in feats)), steps[lo:hi],
-            StepDraws(*(_slice(x, lo, hi) for x in draws[:3])),
-            _slice(images, lo, hi), _slice(xyz_imgs, lo, hi)))
-        if heading is not None:  # the plane fits' draws, in fit order
-            for i in range(lo, hi):
-                if fits[i]:
-                    d.heading[i - lo].copy_(heading[n_fit])
-                    n_fit += 1
+        with profiling.span("scan.stage_rows"):
+            frame, step, d, image, xyz = pin.unpack(rows)
+            load((frame, step, d._replace(heading=None), image, xyz), (
+                Features(*(_slice(x, lo, hi) for x in feats)), steps[lo:hi],
+                StepDraws(*(_slice(x, lo, hi) for x in draws[:3])),
+                _slice(images, lo, hi), _slice(xyz_imgs, lo, hi)))
+            if heading is not None:  # the plane fits' draws, in fit order
+                for i in range(lo, hi):
+                    if fits[i]:
+                        d.heading[i - lo].copy_(heading[n_fit])
+                        n_fit += 1
         prog.run_rows(fits[lo:hi], body, rows, out_rows[lo:hi], gens)
     return prog, pout.unpack(out_rows)
 
@@ -641,31 +672,33 @@ def run_slam(
     the random draws; whatever it leaves None comes from ``generator``.
     The bootstrap runs as its program (``bootstrap_state``), the F−1
     steps as ``scan_steps``' program: on the card one graph replay for
-    the bootstrap and one per step."""
-    n_frames = feats.uv.shape[0]
-    dev = feats.uv.device
-    draws = SlamDraws(steps=StepDraws()) if draws is None else draws
-    first = _frame(feats, 0)
-    state0 = bootstrap_state(
-        cam_model, first, cfg, n_landmarks,
-        xyz_img=None if xyz_imgs is None else xyz_imgs[0],
-        image=None if images is None else images[0],
-        plane_gumbel=draws.plane, add_gumbel=draws.boot_add,
-        generator=generator,
-    )
-    steps = torch.arange(1, n_frames, dtype=torch.int32, device=dev)
-    rest = Features(*(x[1:] for x in feats))
-    _, (ts, qs, stats, records) = _scan(
-        cam_model, state0, first, rest, steps, cfg, draws.steps, generator,
-        None if xyz_imgs is None else xyz_imgs[1:], 1,
-        None if images is None else images[1:])
-    contiguous = lambda x: x.contiguous()  # noqa: E731
-    return SlamTrajectory(
-        t=torch.cat([torch.zeros((1, 3), dtype=ts.dtype, device=dev), ts]),
-        q=torch.cat([state0.x[3:7][None], qs]),  # identity, or the prior
-        stats=tree_map(contiguous, stats),
-        records=tree_map(contiguous, records),
-    )
+    the bootstrap and one per step. A span and a request of the tracer
+    (see the module docstring)."""
+    with profiling.span("run_slam", request=True):
+        n_frames = feats.uv.shape[0]
+        dev = feats.uv.device
+        draws = SlamDraws(steps=StepDraws()) if draws is None else draws
+        first = _frame(feats, 0)
+        state0 = bootstrap_state(
+            cam_model, first, cfg, n_landmarks,
+            xyz_img=None if xyz_imgs is None else xyz_imgs[0],
+            image=None if images is None else images[0],
+            plane_gumbel=draws.plane, add_gumbel=draws.boot_add,
+            generator=generator,
+        )
+        steps = torch.arange(1, n_frames, dtype=torch.int32, device=dev)
+        rest = Features(*(x[1:] for x in feats))
+        _, (ts, qs, stats, records) = _scan(
+            cam_model, state0, first, rest, steps, cfg, draws.steps, generator,
+            None if xyz_imgs is None else xyz_imgs[1:], 1,
+            None if images is None else images[1:])
+        contiguous = lambda x: x.contiguous()  # noqa: E731
+        return SlamTrajectory(
+            t=torch.cat([torch.zeros((1, 3), dtype=ts.dtype, device=dev), ts]),
+            q=torch.cat([state0.x[3:7][None], qs]),  # identity, or the prior
+            stats=tree_map(contiguous, stats),
+            records=tree_map(contiguous, records),
+        )
 
 
 @contextlib.contextmanager

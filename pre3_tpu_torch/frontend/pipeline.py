@@ -34,6 +34,7 @@ from pre3_tpu_torch.frontend import sift
 from pre3_tpu_torch.frontend.depth_lift import lift
 from pre3_tpu_torch.frontend.fast import detect
 from pre3_tpu_torch.frontend.patches import extract_patch_descriptors
+from pre3_tpu_torch.utils import profiling
 from pre3_tpu_torch.utils.graphs import (
     StepProgram, keep, load_grouped, program, shape_key,
 )
@@ -141,24 +142,32 @@ def _chunked(name: str, cfg: tuple, variant, body, intensity, xyz,
              confidence) -> Features:
     """``body`` over the frames in chunks of ``sift.FRAME_CHUNK``, each
     through the program of its frame count (see the module docstring):
-    the features in the call's own storage, never a program buffer."""
-    n = intensity.shape[0]
-    out = None
-    for lo in range(0, n, sift.FRAME_CHUNK):
-        part = [x[lo:lo + sift.FRAME_CHUNK] for x in (intensity, xyz,
-                                                      confidence)]
-        prog = program(
-            (name, cfg, shape_key(part)),
-            lambda: StepProgram(name, dict(inp=[torch.empty_like(x)
-                                                for x in part]),
-                                intensity.device, pool=FRONTEND_POOL))
-        load_grouped(prog.buffers["inp"], part)
-        prog.run(variant, lambda b, _g: keep(b, "out", body(*b["inp"])))
-        res = prog.buffers["out"]
-        if out is None:
-            out = Features(*(x.new_empty((n, *x.shape[1:])) for x in res))
-        load_grouped([x[lo:lo + part[0].shape[0]] for x in out], list(res))
-    return out
+    the features in the call's own storage, never a program buffer.
+    While the tracer is on (``utils/profiling``), the call is a span
+    ``frontend`` and a request of its own, each chunk a span
+    ``frontend.chunk``; the chunk program's probes bracket its replay."""
+    with profiling.span("frontend", request=True):
+        n = intensity.shape[0]
+        out = None
+        for lo in range(0, n, sift.FRAME_CHUNK):
+            with profiling.span("frontend.chunk"):
+                part = [x[lo:lo + sift.FRAME_CHUNK]
+                        for x in (intensity, xyz, confidence)]
+                prog = program(
+                    (name, cfg, shape_key(part)),
+                    lambda: StepProgram(name, dict(inp=[torch.empty_like(x)
+                                                        for x in part]),
+                                        intensity.device, pool=FRONTEND_POOL))
+                load_grouped(prog.buffers["inp"], part)
+                prog.run(variant,
+                         lambda b, _g: keep(b, "out", body(*b["inp"])))
+                res = prog.buffers["out"]
+                if out is None:
+                    out = Features(*(x.new_empty((n, *x.shape[1:]))
+                                     for x in res))
+                load_grouped([x[lo:lo + part[0].shape[0]] for x in out],
+                             list(res))
+        return out
 
 
 def extract_sequences(extract, intensity: torch.Tensor, xyz: torch.Tensor,

@@ -65,12 +65,25 @@ grouped copy per dtype, its packed result row out by one copy
 ``eager()`` runs every program's bodies eagerly on its buffers on the
 card too, as on the CPU, while it is open: the plain loop a smoke run
 holds the replays to. Nothing opens it implicitly.
+
+A variant's graph is keyed by (variant, whether the tracer is on;
+``utils/profiling``). With tracing off the graphs hold what the body
+launches and nothing else. With tracing on a run brackets the body with
+the probes ``<program name>.begin`` and ``.end`` (eager on the CPU,
+captured into the graph on the card), and the host's side is recorded
+as spans: ``graphs.capture`` (and the counter ``graphs.captures.<program
+name>``), ``graphs.replay`` (the replay's host time: the generators'
+binding and the graph launch; counter ``graphs.replays``) and
+``graphs.copy_in``/``graphs.copy_out`` around ``run_rows``' copies.
+When tracing turns off every program drops its traced graphs
+(``drop_traced``), whose probe nodes hold the tracer's ring.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -79,6 +92,7 @@ from torch.utils._pytree import (
     tree_flatten, tree_leaves, tree_unflatten,
 )
 
+from pre3_tpu_torch.utils import profiling
 from pre3_tpu_torch.utils.launch_count import uncounted
 
 # Steps whose packed inputs a driver stages at a time: the input rows a
@@ -89,6 +103,8 @@ STAGE_ROWS = 64
 # whether eager() is open
 _CAPTURING: list[str] = []
 _EAGER = False
+# every program made, cached or not (drop_traced)
+_ALL: weakref.WeakSet = weakref.WeakSet()
 
 
 def _refuse_in_capture(name: str) -> None:
@@ -177,7 +193,9 @@ class StepProgram:
         self.cuda = self.device.type == "cuda"
         self.generators = [torch.Generator(self.device)
                            for _ in range(n_generators)] if self.cuda else []
-        self.graphs: dict[Any, Captured] = {}
+        # by (variant, traced)
+        self.graphs: dict[tuple[Any, bool], Captured] = {}
+        _ALL.add(self)
 
     def run(self, variant, body: Callable, generators=()) -> None:
         """``body(buffers, generators)`` once: replayed on the card,
@@ -187,25 +205,47 @@ class StepProgram:
         if self.cuda:
             _refuse_in_capture(self.name)
         if not self.cuda or _EAGER:
-            body(self.buffers, list(generators))
+            self._probed(body)(self.buffers, list(generators))
             return
-        if variant not in self.graphs:
-            self.graphs[variant] = self._capture(body, generators)
+        key = (variant, profiling.on())
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(self._probed(body), generators)
         self.replay(variant, generators)
+
+    def _probed(self, body: Callable) -> Callable:
+        """``body``, bracketed by the program's begin and end probes
+        while tracing is on."""
+        if not profiling.on():
+            return body
+        begin, end = f"{self.name}.begin", f"{self.name}.end"
+
+        def probed(b, gens):
+            profiling.probe(begin, self.device)
+            body(b, gens)
+            profiling.probe(end, self.device)
+
+        return probed
 
     def replay(self, variant, generators=()) -> None:
         """One replay of the captured ``variant`` (``run`` captures it):
         what the host issues per run, and nothing else."""
-        self._bind(generators)
-        shared = _POOLS.get((self.pool, self.device))
-        stream = torch.cuda.current_stream(self.device)
-        if shared is not None:
-            shared.order(stream)
-        self.graphs[variant].graph.replay()
-        if shared is not None:
-            shared.replayed(stream)
-        for g, p in zip(generators, self.generators):
-            g.set_state(p.get_state())
+        with profiling.span("graphs.replay"):
+            profiling.count("graphs.replays")
+            self._bind(generators)
+            shared = _POOLS.get((self.pool, self.device))
+            stream = torch.cuda.current_stream(self.device)
+            if shared is not None:
+                shared.order(stream)
+            self.graphs[(variant, profiling.on())].graph.replay()
+            if shared is not None:
+                shared.replayed(stream)
+            for g, p in zip(generators, self.generators):
+                g.set_state(p.get_state())
+
+    def drop_traced(self) -> None:
+        """Forget the graphs captured while tracing was on."""
+        for key in [k for k in self.graphs if k[1]]:
+            del self.graphs[key]
 
     def run_rows(self, variants, body: Callable, in_rows: torch.Tensor,
                  out_rows: torch.Tensor, generators=()) -> None:
@@ -215,9 +255,11 @@ class StepProgram:
         ``out_rows`` after it."""
         inp, out = self.buffers["inp"], self.buffers["out"]
         for i, v in enumerate(variants):
-            inp.copy_(in_rows[i])
+            with profiling.span("graphs.copy_in"):
+                inp.copy_(in_rows[i])
             self.run(v, body(v), generators)
-            out_rows[i].copy_(out)
+            with profiling.span("graphs.copy_out"):
+                out_rows[i].copy_(out)
 
     def _bind(self, generators) -> list:
         """The program's generators, set from the caller's (none for a
@@ -241,8 +283,10 @@ class StepProgram:
         debug = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
         try:
-            self._warm(body, generators)
-            cap = self._record(body, generators)
+            with profiling.span("graphs.capture"):
+                profiling.count(f"graphs.captures.{self.name}")
+                self._warm(body, generators)
+                cap = self._record(body, generators)
         finally:
             torch.cuda.set_sync_debug_mode(debug)
         return cap._replace(capture_s=time.perf_counter() - t0)
@@ -322,6 +366,13 @@ def program(key, make: Callable[[], StepProgram]) -> StepProgram:
 
 def programs() -> list[StepProgram]:
     return list(_PROGRAMS.values())
+
+
+def drop_traced() -> None:
+    """Every program, cached or not, forgets its traced graphs (the
+    tracer, as it turns off and before it frees its ring)."""
+    for prog in list(_ALL):
+        prog.drop_traced()
 
 
 def pools() -> dict:

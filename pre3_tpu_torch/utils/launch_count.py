@@ -10,7 +10,8 @@ kernel runs and the count stays where it was set.
 
 Launches made inside ``uncounted()`` (in that thread) pass no counter
 and are not counted: a step program's warm-up, set-up whose results are
-thrown away, runs so.
+thrown away, runs so. The tracer's probes (``utils/profiling``) record
+nothing there either.
 """
 
 from __future__ import annotations
@@ -35,6 +36,12 @@ def uncounted():
         _LOCAL.off = prev
 
 
+def counting() -> bool:
+    """Whether launches in this thread are counted here (outside
+    ``uncounted()``)."""
+    return not getattr(_LOCAL, "off", False)
+
+
 class Counted:
     """A kernel wrapper with its launch count (see the module
     docstring)."""
@@ -52,7 +59,7 @@ class Counted:
         """The address the kernel counts its run at on ``device``: the
         counter's, or 0 (null, not counted) inside ``uncounted()``."""
         ptr = self.counter(device).data_ptr()  # made here, not in a capture
-        return 0 if getattr(_LOCAL, "off", False) else ptr
+        return ptr if counting() else 0
 
     def counter(self, device: torch.device) -> torch.Tensor:
         """The [1] int32 counter the kernel adds to on ``device``, made
@@ -68,7 +75,7 @@ class Counted:
             c = self._counters[index] = torch.zeros(
                 1, dtype=torch.int32, device=f"cuda:{index}")
             # made on the current stream; any stream may launch next
-            with _sync_allowed():
+            with sync_allowed():
                 torch.cuda.synchronize(index)
         return c
 
@@ -77,7 +84,7 @@ class Counted:
         """Runs of the kernel since the count was set: reads the device
         counters, after every stream of their devices has finished."""
         n = 0
-        with _sync_allowed():  # a deliberate read
+        with sync_allowed():  # a deliberate read
             for index, c in self._counters.items():
                 torch.cuda.synchronize(index)
                 n += int(c.item())
@@ -85,7 +92,7 @@ class Counted:
 
     @launches.setter
     def launches(self, n: int) -> None:
-        with _sync_allowed():
+        with sync_allowed():
             for index, c in self._counters.items():
                 torch.cuda.synchronize(index)
                 c.zero_()
@@ -94,7 +101,7 @@ class Counted:
 
 
 @contextlib.contextmanager
-def _sync_allowed():
+def sync_allowed():
     """torch's sync debug mode suspended: the counters' reads and writes
     wait for the device on purpose."""
     if not torch.cuda.is_available():

@@ -280,10 +280,12 @@ def test_smooth_matches_jax(fast_online):
 
 def test_stage_timer_and_device_trace(tmp_path):
     """StageTimer counts and sums per stage as the reference's does;
-    device_trace is a no-op without a directory and otherwise writes a
-    Chrome trace of the region (CPU activity here, CUDA on a card)."""
+    while the tracer is on (its device trace, utils/profiling.py) each
+    stage is also a span of its name, which the tracer's Chrome trace
+    holds; off, a stage records no span."""
     from pre3_tpu.utils.profiling import StageTimer as JStageTimer
-    from pre3_tpu_torch.utils.profiling import StageTimer, device_trace
+    from pre3_tpu_torch.utils import profiling
+    from pre3_tpu_torch.utils.profiling import StageTimer
 
     timers = [StageTimer(), JStageTimer()]
     for timer in timers:
@@ -295,9 +297,10 @@ def test_stage_timer_and_device_trace(tmp_path):
     assert got.keys() == ref.keys() == {"a", "b"}
     assert got["a"]["count"] == 3 and got["b"] == ref["b"]
     assert timers[0].report().splitlines()[1].startswith("b")
-    with device_trace(None) as prof:
-        assert prof is None
-    with device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(8).sum()
-    assert any(a.key == "aten::sum" for a in prof.key_averages())
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    with profiling.tracing():
+        with timers[0].stage("traced"):
+            torch.ones(8).sum()
+    assert timers[0].summary()["traced"]["count"] == 1
+    assert [s["name"] for s in profiling.export()["spans"]] == ["traced"]
+    profiling.write_chrome_trace(tmp_path / "trace.json")
+    assert (tmp_path / "trace.json").stat().st_size > 0
