@@ -44,9 +44,13 @@ It builds the kernels from ``pre3_tpu_torch/csrc`` on first use (needs
 device, and imports nothing of JAX. Phases:
 
   1. device     — the card's name and power limit (nvidia-smi);
-  2. build      — compile or load K1 (RANSAC scorer) and K2 (streaming
-                  matcher), with ptxas registers/spills;
-  3. kernel     — K1 and K2 vs their plain versions on the card, timed;
+  2. build      — compile or load K1 (RANSAC scorer), K2 (streaming
+                  matcher) and K3 (new landmarks and their Jacobians),
+                  with ptxas registers/spills;
+  3. kernel     — K1, K2 and K3 vs their plain versions on the card,
+                  timed (K3 at a step's A = 8, a bootstrap's A = 32 and
+                  S = 16 × 8 through torch.func.vmap, beside the four
+                  passes it replaces and its empty-kernel floor);
   4. parity     — a 16-frame VO slice on the card vs the port's CPU path;
   5. slice      — the 256-frame corridor VO slice at the bench operating
                   point: frames/s, K1 and K2 launches per run, ATE;
@@ -147,7 +151,8 @@ device, and imports nothing of JAX. Phases:
                   config #2, IEKF and the attitude update every 4 steps
                   (tilted floor), VO run_sequence, run_slam_batched at
                   S=4, OnlineSlam.process against its fused_fn, then
-                  process_chunk and a resumed run. Per program: K1/K2
+                  process_chunk and a resumed run (K3 once per
+                  replayed step and once per bootstrap). Per program: K1/K2
                   on the kernels' device counters; the driver's steps
                   profiled, with K1 and K2 found by name as often as the
                   counters ran them in that window, the host-issued
@@ -187,7 +192,8 @@ device, and imports nothing of JAX. Phases:
                   S=4 with generators. Per case: host ms, host-issued
                   launches and device busy per iteration or bootstrap,
                   graphed and eager, capture seconds and pools; each
-                  graphed call under sync checks; K1/K2 none; launches
+                  graphed call under sync checks; K1/K2 none, K3 once
+                  per bootstrap (S for the batched one); launches
                   within SOLVER_LAUNCHES_ITERATION, _EPNP and
                   _BOOTSTRAP. Then a 32-frame SIFT run_slam's wall time
                   with the bootstrap eager and as its program (a record);
@@ -506,6 +512,14 @@ WALK_FRAMES, WALK_ATE_MAX = 32, 0.5
 # K2 agreement (phase 3): rows whose best/second margin, or ratio margin,
 # is below this relative gap may legitimately resolve either way.
 K2_MARGIN = 1e-5
+# K3 agreement (phase 3): per output block, max |kernel − plain| over the
+# block's largest |plain| entry (tests/test_torch_inverse_depth_init_card.py).
+K3_TOL = 1e-5
+# K3's f32 flops per candidate, counted from csrc/inverse_depth_init.cu
+# with a value and two tangents per scalar: the 10 Newton steps ~640, the
+# rest of the undistortion ~110, the rotations and angles ~150, the
+# camera Jacobian's four columns ~200 (each atan2 counted as 1).
+K3_FLOPS = 1100
 
 # Phase 28: probe-timed step replays against CUDA events around them
 # (a relative and an absolute tolerance: either holds), and the stages'
@@ -658,6 +672,14 @@ def k2_bound(n1: int, n2: int, d: int, s: int = 1):
     the three outputs; all of it ``s`` times for s sequences."""
     return bound_ms(2.0 * s * n1 * n2 * d, H100_TF32_FLOPS,
                     s * (4 * (n1 + n2) * d + n2 + n1 * 16))
+
+
+def k3_bound(a: int, s: int = 1):
+    """K3: K3_FLOPS f32 flops per candidate outside the tensor cores;
+    bytes: each candidate's pixel and ρ in, its y and three Jacobians
+    (6 + 78 + 12 + 6 floats) out, and each sequence's camera."""
+    return bound_ms(K3_FLOPS * s * a, H100_F32_FLOPS,
+                    s * (a * 4 * (3 + 102) + 4 * 13))
 
 
 def floor_fn(launch, *sizes):
@@ -822,6 +844,88 @@ def check_k1():
               f"{t['wrapper_ms']:.5f}; bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}), {t['bound_ms'] / t['device_ms']:.2%} of it")
     return max_abs_err, timings
+
+
+def init_problem(s: int, a: int, seed: int):
+    """K3's inputs: candidates over the whole image, camera states with a
+    unit q, depth priors across the corridor's range; a leading sequence
+    axis when s > 1."""
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+
+    cam = sr4000_camera()
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(0, [cam.n_cols - 1, cam.n_rows - 1], (s, a, 2))
+    cam13 = rng.normal(scale=0.5, size=(s, 13))
+    q = rng.normal(size=(s, 4))
+    cam13[:, 3:7] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    rho = rng.uniform(0.1, 2.0, (s, a))
+    args = [torch.as_tensor(x[0] if s == 1 else x, dtype=torch.float32,
+                            device="cuda") for x in (uv, cam13, rho)]
+    return cam, args
+
+
+def k3_gap(got, ref) -> float:
+    """The largest, over K3's four output blocks, of max |got − ref| ÷
+    the block's largest |ref| (NaNs in the same places)."""
+    worst = 0.0
+    for g, r in zip(got, ref):
+        if not torch.equal(torch.isnan(g), torch.isnan(r)):
+            raise AssertionError("K3: NaN layouts differ from the plain "
+                                 "version's")
+        ok = ~torch.isnan(r)
+        worst = max(worst, float((g - r)[ok].abs().max())
+                    / max(float(r[ok].abs().max()), 1e-30))
+    return worst
+
+
+def check_k3():
+    """K3 vs its plain version at every path's shape (a step's A = 8, a
+    bootstrap's A = 32, run_slam_batched's S = 16 × 8 through
+    torch.func.vmap, one launch each), graph replay bitwise equal to the
+    eager call; timings at the same shapes beside the plain version (the
+    four passes it replaces; vmapped at S = 16) and the empty-kernel
+    floor."""
+    from pre3_tpu_torch.ops.inverse_depth_init import (
+        _lib, inverse_depth_init, inverse_depth_init_torch,
+    )
+
+    vmapped = lambda f, cam: torch.func.vmap(  # noqa: E731
+        lambda u, c, r: f(cam, u, c, r))
+    shapes = (("8", 1, 8), ("32", 1, 32), ("16x8", 16, 8))
+    max_gap, timings = 0.0, {}
+    for name, s, a in shapes:
+        cam, args = init_problem(s, a, 30 + a + s)
+        kernel = (vmapped(inverse_depth_init, cam) if s > 1 else
+                  lambda *x: inverse_depth_init(cam, *x))
+        plain = (vmapped(inverse_depth_init_torch, cam) if s > 1 else
+                 lambda *x: inverse_depth_init_torch(cam, *x))
+        inverse_depth_init.launches = 0
+        got = kernel(*args)
+        launches = inverse_depth_init.launches
+        gap = k3_gap(got, plain(*args))
+        max_gap = max(max_gap, gap)
+        phase("kernel", f"K3 {name}: one launch {launches == 1}, largest "
+              f"block gap {gap:.3e} (tolerance {K3_TOL})")
+        if launches != 1 or gap > K3_TOL:
+            raise AssertionError(f"K3 {name}: {launches} launches, gap "
+                                 f"{gap:.3e}")
+        if not replay_equals_eager(lambda: kernel(*args)):
+            raise AssertionError(f"K3 {name}: graph replay differs from "
+                                 f"the eager call")
+        t = dict(device_ms=device_ms(lambda: kernel(*args)),
+                 plain_ms=device_ms(lambda: plain(*args)), library_ms=None,
+                 wrapper_ms=wrapper_ms(lambda: kernel(*args)),
+                 launch_floor_ms=device_ms(floor_fn(
+                     _lib().inverse_depth_init_floor_launch, s, a)))
+        t["bound_ms"], t["bound_by"] = k3_bound(a, s)
+        timings[name] = t
+        phase("kernel", f"K3 time {name}: graph replay bitwise equal to "
+              f"eager; device {t['device_ms']:.5f} ms (empty-kernel floor "
+              f"{t['launch_floor_ms']:.5f}), plain {t['plain_ms']:.5f}, "
+              f"library none, wrapper (host) {t['wrapper_ms']:.5f}; bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['device_ms']:.2%} of it")
+    return max_gap, timings
 
 
 def k2_compare(name, k, p, d1, d2, where: str = "kernel") -> float:
@@ -1900,11 +2004,13 @@ def zero_rows_phase(out, feats, ks, gt):
 
 
 def reset_launches():
+    from pre3_tpu_torch.ops.inverse_depth_init import inverse_depth_init
     from pre3_tpu_torch.ops.matching import match_descriptors_k2
     from pre3_tpu_torch.ops.ransac_score import score_hypotheses
 
     score_hypotheses.launches = 0
     match_descriptors_k2.launches = 0
+    inverse_depth_init.launches = 0
 
 
 def read_launches() -> tuple[int, int]:
@@ -1912,6 +2018,13 @@ def read_launches() -> tuple[int, int]:
     from pre3_tpu_torch.ops.ransac_score import score_hypotheses
 
     return score_hypotheses.launches, match_descriptors_k2.launches
+
+
+def read_k3() -> int:
+    """K3's runs on its device counter since ``reset_launches``."""
+    from pre3_tpu_torch.ops.inverse_depth_init import inverse_depth_init
+
+    return inverse_depth_init.launches
 
 
 def max_ulp(a: np.ndarray, b: np.ndarray) -> int:
@@ -3236,10 +3349,11 @@ def host_seconds(fn) -> float:
 
 
 def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
-                     k2_per_step, limit=GRAPH_LAUNCHES_RUN_SLAM):
+                     k2_per_step, k3=0, limit=GRAPH_LAUNCHES_RUN_SLAM):
     """One driver: ``run()`` graphed (its first call captures), again
     under sync checks (replays only) and against ``eager()``; K1/K2 on
-    the kernels' device counters; host ms per step of the whole call
+    the kernels' device counters, and K3's against ``k3`` (one per step
+    and one per bootstrap the call runs); host ms per step of the whole call
     and of ``stepper()`` alone (the steps after the driver's
     bootstrap), medians of 3; ``stepper()`` profiled for the host-issued
     launches per step, device busy per step and the idle share of that
@@ -3257,6 +3371,7 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     k1, k2 = read_launches()
+    k3_runs = read_k3()
     t_run = statistics.median([t_run] + [host_seconds(run) for _ in range(2)])
     t_steps = statistics.median([host_seconds(stepper) for _ in range(3)])
     torch.cuda.synchronize()
@@ -3270,7 +3385,7 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
     graphed_peak = peak_above(run)
     equal, gap = tree_gap(got, ref)
     launches, busy, wall, names, counted = profiled_launches(stepper)
-    res = dict(name=name, equal=equal, gap=gap, k1=k1, k2=k2,
+    res = dict(name=name, equal=equal, gap=gap, k1=k1, k2=k2, k3=k3_runs,
                launches=launches / steps, busy_ms=busy / steps,
                host_ms=1e3 * t_run / steps, steps_ms=1e3 * t_steps / steps,
                eager_host_ms=1e3 * t_eager / steps, idle=1.0 - busy / wall,
@@ -3278,8 +3393,8 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
                names=names, first_s=t_first, captures=caps,
                peak_mib=graphed_peak, eager_peak_mib=eager_peak)
     phase("graphs", f"{name}: graphed vs eager bit-equal {equal} (max gap "
-          f"{gap:.3e}); K1 {k1}, K2 {k2} over {steps} steps (device "
-          f"counters); host {res['host_ms']:.3f} ms per step for the whole "
+          f"{gap:.3e}); K1 {k1}, K2 {k2}, K3 {k3_runs} (want {k3}) over "
+          f"{steps} steps (device counters); host {res['host_ms']:.3f} ms per step for the whole "
           f"call, {res['fps']:.2f} frames/s (eager {res['eager_host_ms']:.3f}"
           f" ms, {res['eager_fps']:.2f} frames/s), the steps alone "
           f"{res['steps_ms']:.3f} ms per step; the steps profiled: launches "
@@ -3298,10 +3413,10 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
     # kernels by name
     want = {K1_KERNEL: k1_per_step * steps, K2_KERNEL: k2_per_step * steps}
     if (k1, k2) != tuple(want.values()) or counted != want or not all(
-            names.values()):
-        raise AssertionError(f"graphs {name}: K1 {k1}, K2 {k2} over {steps} "
-                             f"steps; profiled {names}, counted {counted}, "
-                             f"want {want}")
+            names.values()) or k3_runs != k3:
+        raise AssertionError(f"graphs {name}: K1 {k1}, K2 {k2}, K3 {k3_runs}"
+                             f" over {steps} steps; profiled {names}, counted "
+                             f"{counted}, want {want} and K3 {k3}")
     if res["launches"] > limit:
         raise AssertionError(f"graphs {name}: {res['launches']:.2f} launches "
                              f"per step (limit {limit})")
@@ -3460,6 +3575,7 @@ def online_graphs(images, cam):
     wall = 1e3 * (time.perf_counter() - t_loop) / (n - 2)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
     k1, k2 = read_launches()
+    k3 = read_k3()
     ref = eager()
     got = [(r.t, r.q) if r.stats is None else (r.t, r.q, r.stats)
            for r in slam2.results]
@@ -3477,7 +3593,8 @@ def online_graphs(images, cam):
     med = statistics.median(ms)
     phase("graphs", f"OnlineSlam.process (SIFT, K={k}), {n} frames: "
           f"graphed vs its fused_fn eagerly bit-equal {equal} (max gap "
-          f"{gap:.3e}), two instances equal {same}; K1 {k1}, K2 {k2}; "
+          f"{gap:.3e}), two instances equal {same}; K1 {k1}, K2 {k2}, K3 "
+          f"{k3}; "
           f"process() returns in {med:.3f} ms (median, no host sync), "
           f"{wall:.3f} ms per frame over frames 2–{n - 1} with the closing "
           f"synchronize ({1e3 / wall:.1f} frames/s); {GRAPH_PROFILED_FRAMES} "
@@ -3488,9 +3605,9 @@ def online_graphs(images, cam):
           f"{peak:.1f} MiB above the state; first frame after the bootstrap "
           f"{first:.2f} s; " + "; ".join(caps))
     # frames 1..n−1: the first of them captures (its warm-up uncounted)
-    if not (equal and same) or (k1, k2) != (n - 1, 2 * (n - 1)):
+    if not (equal and same) or (k1, k2, k3) != (n - 1, 2 * (n - 1), n - 1):
         raise AssertionError("graphs: OnlineSlam.process differs from its "
-                             "eager frames or from its K1/K2 counts")
+                             "eager frames or from its K1/K2/K3 counts")
     want = {K1_KERNEL: GRAPH_PROFILED_FRAMES,
             K2_KERNEL: 2 * GRAPH_PROFILED_FRAMES}
     if launches > GRAPH_LAUNCHES_FRAME or counted != want or not all(
@@ -3604,8 +3721,9 @@ def graphs_phase(images, im):
             cam, state0, first, rest, idx, cfg, generator=gen(),
             xyz_imgs=None if xyz is None else xyz[1:], first_step=1,
             images=None if images_ is None else images_[1:])
+        # K3: one per step and one for the bootstrap
         results[name] = graphed_vs_eager(name, run, eager, stepper, steps, 1,
-                                         k2)
+                                         k2, k3=steps + 1)
 
     slam_case("run_slam #3 (SIFT, K=256)", sift, SlamConfig(**SIFT_CFG),
               SIFT_LANDMARKS)
@@ -3638,7 +3756,7 @@ def graphs_phase(images, im):
         lambda: eager_batched(cam, bfeats, bcfg, SIFT_LANDMARKS, bgens())[0],
         lambda: scan_steps_batched(cam, bstate, bfeats, bcfg, SIFT_LANDMARKS,
                                    generators=bgens()),
-        steps, 1, 2, limit=GRAPH_LAUNCHES_RUN_SLAM + s)
+        steps, 1, 2, k3=steps + s, limit=GRAPH_LAUNCHES_RUN_SLAM + s)
     _, rows = eager_batched(cam, Features(*(x[:, :4] for x in bfeats)), bcfg,
                             SIFT_LANDMARKS, bgens())
     kept = retained_per_step([r[-1] for r in rows])
@@ -3769,12 +3887,12 @@ def as_tensors(tree):
 
 def backend_case(name, run, eager, steps: int, unit: str, want, limit,
                  verdict: int = 0, where: str = "backend-graphs",
-                 sync_check: bool = False, eager_steps=(1, 2)):
+                 sync_check: bool = False, eager_steps=(1, 2), k3: int = 0):
     """One program of config #4: ``run()`` (through the program; a first
     call captures any variant not captured yet) against ``eager(steps)``,
     the plain loop of its body, on the same inputs and draws, bit for bit.
     K1/K2 on the device counters of the graphed and the eager runs
-    against ``want``; host ms per step of each (medians of 3 and of 1);
+    against ``want``, K3's against ``k3`` (one per bootstrap); host ms per step of each (medians of 3 and of 1);
     the graphed run profiled for host-issued launches per step (less
     ``verdict`` host reads per step), device busy per step and idle
     share, and the eager loop profiled over ``eager_steps`` (1 and 2)
@@ -3789,7 +3907,7 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
     from pre3_tpu_torch.utils.profile_slice import _profiled
 
     def counted_run(fn, check=False):
-        """(fn's result, host seconds, K1/K2 on the device counters)."""
+        """(fn's result, host seconds, K1/K2/K3 on the device counters)."""
         reset_launches()
         torch.cuda.synchronize()
         if check:
@@ -3800,7 +3918,7 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, read_launches()
+        return out, time.perf_counter() - t0, (*read_launches(), read_k3())
 
     t_case = time.perf_counter()
     before = captured_now()
@@ -3817,6 +3935,7 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
         for n in eager_steps)
     equal, gap = tree_gap(as_tensors(got), as_tensors(ref))
     res = dict(name=name, equal=equal, gap=gap, k1=counts[0], k2=counts[1],
+               k3=counts[2],
                launches=launches / steps - verdict, busy_ms=busy / steps,
                host_ms=1e3 * t_graph / steps, idle=1.0 - busy / wall,
                eager_host_ms=1e3 * t_eager / steps,
@@ -3836,16 +3955,17 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
           f"{verdict} "
           f"verdict read per {unit}; whole call graphed {1e3 * t_graph:.2f} "
           f"ms, eager {1e3 * t_eager:.2f} ms, first call {t_first:.2f} s; "
-          f"K1/K2 graphed {counts}, eager {eager_counts}, profiled {names} "
-          f"against the counters {counted}, want {want}; case "
+          f"K1/K2/K3 graphed {counts}, eager {eager_counts}, profiled {names}"
+          f" against the counters {counted}, want {(*want, k3)}; case "
           f"{res['case_s']:.1f} s; " + "; ".join(caps))
     if not equal:
         raise AssertionError(f"{where} {name}: graphed and eager "
                              f"differ (max gap {gap:.3e})")
     want_names = dict(zip((K1_KERNEL, K2_KERNEL), want))
+    want = (*want, k3)
     if counts != want or eager_counts != want or counted != want_names or (
             any(names[k] == 0 for k, v in want_names.items() if v)):
-        raise AssertionError(f"{where} {name}: K1/K2 {counts} "
+        raise AssertionError(f"{where} {name}: K1/K2/K3 {counts} "
                              f"(eager {eager_counts}, profiled {names}, "
                              f"counted {counted}), want {want}")
     if res["launches"] > limit:
@@ -4179,7 +4299,7 @@ def solver_graphs_phase(pnp_cases, im):
             f"prior{', init patches' if image is not None else ''})",
             call, eager_calls(repeated(call)), 1, "bootstrap", (0, 0),
             SOLVER_LAUNCHES_BOOTSTRAP, where="solver-graphs",
-            sync_check=True, eager_steps=(0, 1))
+            sync_check=True, eager_steps=(0, 1), k3=1)
     s = SOLVER_BATCH_SEQS
     cfg = SlamConfig(**SIFT_CFG)
     gens = lambda n: [torch.Generator("cuda").manual_seed(  # noqa: E731
@@ -4193,7 +4313,7 @@ def solver_graphs_phase(pnp_cases, im):
         f"bootstrap_batched (S={s}, K={SIFT_LANDMARKS})",
         lambda: batched(s), eager_calls(batched), s, "bootstrap", (0, 0),
         SOLVER_LAUNCHES_BOOTSTRAP, where="solver-graphs", sync_check=True,
-        eager_steps=(0, 1))
+        eager_steps=(0, 1), k3=s)
 
     feats = sift
     first, rest = _frame(feats, 0), Features(*(x[1:] for x in feats))
@@ -4255,11 +4375,13 @@ def main() -> None:
         return out
 
     # ---- 2. build ----
-    timed("build", build_kernels, ["ransac_score", "match_stream"])
+    timed("build", build_kernels,
+          ["ransac_score", "match_stream", "inverse_depth_init"])
 
     # ---- 3. kernels vs plain on the card ----
     k1_err, k1_times = timed("kernel K1", check_k1)
     k2_err, k2_times = timed("kernel K2", check_k2)
+    k3_gap, k3_times = timed("kernel K3", check_k3)
 
     # ---- 4./5. VO slice ----
     images, im, gt = timed("parity + slice (VO)", vo_phases)
@@ -4401,9 +4523,19 @@ def main() -> None:
          **b_times[f"K2 vo {BATCH_SEQS}x288x288x128"],
          "map_match": {"shape": f"S={BATCH_SEQS}, N1=256, N2=288, D=128",
                        **b_times[f"K2 map {BATCH_SEQS}x256x288x128"]}},
+        {"name": "inverse_depth_init", "route": "cuda",
+         "source": "pre3_tpu_torch/csrc/inverse_depth_init.cu",
+         "replaces": "none (add_features' inverse_depth_point and its three "
+                     "jacfwd passes, pre3_tpu/ekf/map_management.py)",
+         "shape": "A=8 (a step)",
+         "launches": graph_res["run_slam #3 (SIFT, K=256)"]["k3"],
+         "max_rel_block_gap": k3_gap, "ms": k3_times["8"]["device_ms"],
+         **k3_times["8"],
+         "bootstrap_time": {"shape": "A=32", **k3_times["32"]},
+         "batched_time": {"shape": "S=16, A=8", **k3_times["16x8"]}},
     ], "pnp_icp_card_vs_cpu": pnp_err,
         "graphs": {k: {f: v[f] for f in ("launches", "host_ms", "busy_ms",
-                                        "idle", "k1", "k2") if f in v}
+                                        "idle", "k1", "k2", "k3") if f in v}
                    for k, v in graph_res.items() if k != "memory"},
         "graph_memory": {k: graph_res["memory"][k]
                          for k in ("growth", "eager_growth", "frontend")},

@@ -6,9 +6,10 @@ Port of ``pre3_tpu/ekf/map_management.py``:
   convert_to_cartesian — linearity-index conversion with the closed-form
     reparameterization Jacobian, in place in the 6-wide slot;
   add_features — new inverse-depth landmarks from unmatched frame
-    features with the RGB-D depth prior ρ = 1/‖xyz‖, all adds as one
-    batched covariance augmentation written by three strip/block
-    scatters.
+    features with the RGB-D depth prior ρ = 1/‖xyz‖ (each landmark and
+    its Jacobians from ``ops/inverse_depth_init.py``, kernel K3 on the
+    card), all adds as one batched covariance augmentation written by
+    three strip/block scatters.
 
 Candidate selection: "topk" (detector score) or "weighted" (the
 reference's Gaussian-center-weighted sampling without replacement, as one
@@ -21,16 +22,15 @@ lower index.
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd, vmap
 
 from pre3_tpu_torch.ekf.state import CAM_DIM, LM_DIM, EkfState
 from pre3_tpu_torch.frontend.patch_warp import extract_raw_patches
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.inverse_depth import (
-    conversion_jacobian, inverse_depth_point, inverse_depth_to_cartesian,
-    linearity_index,
+    conversion_jacobian, inverse_depth_to_cartesian, linearity_index,
 )
+from pre3_tpu_torch.ops.inverse_depth_init import inverse_depth_init
 from pre3_tpu_torch.utils.topk import stable_topk
 from pre3_tpu_torch.vo.ransac import _draw_gumbel
 
@@ -231,17 +231,9 @@ def add_features(
                if depth_range_quadratic else depth_sigma * rho0 * rho0)
 
     cam13 = state.x[:CAM_DIM]
-
-    def y_of(c, uv_, rho_):
-        return inverse_depth_point(cam_model, uv_, c[0:3], c[3:7], rho_)
-
-    y_a = y_of(cam13, uv_a, rho0)  # [A, 6]
-    jc_a = vmap(lambda u, r: jacfwd(lambda c: y_of(c, u, r))(cam13))(
-        uv_a, rho0)  # [A, 6, 13]
-    juv_a = vmap(lambda u, r: jacfwd(lambda uu: y_of(cam13, uu, r))(u))(
-        uv_a, rho0)  # [A, 6, 2]
-    jr_a = vmap(lambda u, r: jacfwd(lambda rr: y_of(cam13, u, rr))(r))(
-        uv_a, rho0)  # [A, 6]
+    # y [A, 6] and its Jacobians in the camera [A, 6, 13], the pixel
+    # [A, 6, 2] and ρ [A, 6]: one launch of K3 on the card
+    y_a, jc_a, juv_a, jr_a = inverse_depth_init(cam_model, uv_a, cam13, rho0)
 
     # failed adds are exact no-ops: a non-do slot keeps its rows
     y_a = torch.where(do[:, None], y_a, 0.0)

@@ -167,6 +167,70 @@ def test_inverse_depth_matches_jax():
                                        rtol=1e-5, err_msg=f"pair {i}")
 
 
+def _four_passes(cam, uv, cam13, rho):
+    """add_features' landmark initialization as it was written before
+    ops/inverse_depth_init.py: the value and three vmap(jacfwd) passes."""
+    from torch.func import jacfwd, vmap
+
+    def y_of(c, uv_, rho_):
+        return tid.inverse_depth_point(cam, uv_, c[0:3], c[3:7], rho_)
+
+    return (y_of(cam13, uv, rho),
+            vmap(lambda u, r: jacfwd(lambda c: y_of(c, u, r))(cam13))(uv, rho),
+            vmap(lambda u, r: jacfwd(lambda uu: y_of(cam13, uu, r))(u))(
+                uv, rho),
+            vmap(lambda u, r: jacfwd(lambda rr: y_of(cam13, u, rr))(r))(
+                uv, rho))
+
+
+def _init_inputs(rng, lead, a):
+    """Candidates over the whole image, a camera state with a unit q,
+    depth priors across the corridor's range."""
+    uv = rng.uniform(0, [TCAM.n_cols - 1, TCAM.n_rows - 1], (*lead, a, 2))
+    cam13 = rng.normal(scale=0.5, size=(*lead, 13))
+    q = rng.normal(size=(*lead, 4))
+    cam13[..., 3:7] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    rho = rng.uniform(0.1, 2.0, (*lead, a))
+    return [torch.as_tensor(x, dtype=torch.float32) for x in (uv, cam13, rho)]
+
+
+@pytest.mark.parametrize("form,a", [("plain", 8), ("plain", 32),
+                                    ("vmap", 8)])
+def test_inverse_depth_init_matches_four_passes(form, a):
+    """ops/inverse_depth_init.py on the CPU: the plain version and the
+    wrapper equal the four passes add_features ran before, bit for bit,
+    at the step's A = 8 and the bootstrap's A = 32; under torch.func.vmap
+    the custom op (the card's route) equals a loop of the plain version
+    over the sequences, bit for bit, with the camera batched and shared."""
+    from pre3_tpu_torch.ops.inverse_depth_init import (
+        _init_op, inverse_depth_init, inverse_depth_init_torch,
+    )
+
+    rng = np.random.default_rng(a)
+    if form == "plain":
+        uv, cam13, rho = _init_inputs(rng, (), a)
+        ref = _four_passes(TCAM, uv, cam13, rho)
+        for got in (inverse_depth_init_torch(TCAM, uv, cam13, rho),
+                    inverse_depth_init(TCAM, uv, cam13, rho)):
+            assert [g.shape for g in got] == [(a, 6), (a, 6, 13), (a, 6, 2),
+                                              (a, 6)]
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r)
+        return
+    s = 3
+    uv, cam13, rho = _init_inputs(rng, (s,), a)
+    got = torch.func.vmap(lambda u, c, r: _init_op(u, c, r, *TCAM))(
+        uv, cam13, rho)
+    shared = torch.func.vmap(lambda u, r: _init_op(u, cam13[1], r, *TCAM))(
+        uv, rho)
+    for i in range(s):
+        for g, sh, r, r_sh in zip(
+                got, shared, inverse_depth_init_torch(TCAM, uv[i], cam13[i],
+                                                      rho[i]),
+                inverse_depth_init_torch(TCAM, uv[i], cam13[1], rho[i])):
+            assert torch.equal(g[i], r) and torch.equal(sh[i], r_sh)
+
+
 # ---------------------------------------------------------------------------
 # vo/covariance.py, ops/small_chol.py
 # ---------------------------------------------------------------------------
