@@ -1,24 +1,37 @@
 """The comparison that decides ``correct``: what the program produced
-against the plain reference (``port_bench/reference``: the SIFT
-frontend and the EKF-SLAM step written as plain formulas, in float64,
-importing nothing of the program).
+against the plain reference (``port_bench/reference``: the frontends,
+the map matchers, the floor-plane prior and the EKF-SLAM step written
+as plain formulas, in float64, importing nothing of the program).
+
+The configuration picks the reference's parts (``Reference``): the
+frontend by ``frontend.extractor`` (``sift``: ``reference/sift.py``;
+``fast``: ``reference/fast.py``), the map matcher by ``slam.matcher``
+(``desc``: descriptor matching in ``reference/ekf.py``; ``ncc_warp``:
+the warped-patch NCC scan, ``reference/ncc.py``), and, where the
+filter is given the frames' images (``images_to_slam``) and
+``slam.initial_orientation`` is on (the port's default), the
+bootstrap's floor-plane prior (``reference/plane_fit.py``).
 
 From the images the benchmark rendered, the reference recomputes the
 frontend's features of every frame of a checked sequence, the
-bootstrap from frame 0, and checked steps. A step needs the filter's
+bootstrap from frame 0 (its features, and with images its intensity
+and xyz image), and checked steps (with images, each step's
+intensity image). A step needs the filter's
 state before it, which only the program has: the reference takes it
 from the program's own states (``System.states``, the program's
 drivers run again outside the window on the same inputs and seeds) and
 its own features of the step's two frames. Random draws come from a
 ``torch.Generator`` seeded as the program's and advanced past the same
-draws.
+draws: the bootstrap's (the plane fit's, where it runs) and each
+step's, in the program's shapes and order.
 
 Numbers (compared with a limit where ``port_bench/limits/<cell>.json``
 gives one):
 
 * ``feature_miss_share``: the share of valid keypoints, program's and
   reference's together, that find no partner in the other set (same
-  frame and octave, position within 0.01 px, score within 0.01%, the
+  frame and block of the frontend: a SIFT octave, or FAST's one block
+  of ``max_features``; position within 0.01 px, score within 0.01%, the
   same lifted point to a millionth; a keypoint whose refinement is
   ill-conditioned moves further under rounding and counts here);
 * ``feature_gap``: over the partners, the widest descriptor difference
@@ -26,7 +39,8 @@ gives one):
 * ``state_gap_median``: the median over the checked stages (the
   bootstrap and each checked step) of the stage's relative gap
   max|program − reference| ÷ max|reference| of the mean and of the
-  covariance, or the share of landmark slots whose activity differs;
+  covariance, of the landmarks' init patches, or the share of landmark
+  slots whose activity differs;
 * ``steps_off_share``: the share of checked stages whose gap exceeds
   ``STAGE_TOL``;
 * ``replay_gap``: the largest difference between the trajectory the
@@ -46,7 +60,7 @@ import time
 
 import torch
 
-from port_bench.reference import ekf, sift
+from port_bench.reference import ekf, fast, plane_fit, sift
 
 STAGE_TOL = 1e-4  # a stage whose state gap exceeds this is "off"
 FRAME_CHUNK = 64  # frames per pass of the reference frontend
@@ -84,19 +98,21 @@ def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def state_gap(prog, ref) -> float:
-    """Relative gaps of the mean and the covariance, or the share of
-    slots whose activity differs: the widest."""
+    """Relative gaps of the mean, the covariance and the init patches,
+    or the share of slots whose activity differs: the widest."""
     return max(rel_gap(prog.x, ref.x), rel_gap(prog.p, ref.p),
+               rel_gap(prog.init_patch, ref.init_patch),
                float((prog.active != ref.active).float().mean()))
 
 
-def feature_numbers(prog, ref, per_octave: int) -> tuple[int, int, float]:
+def feature_numbers(prog, ref, block: int) -> tuple[int, int, float]:
     """(unpaired keypoints, valid keypoints, widest gap of the pairs)
-    between two feature sets [F, K, ...] of frames."""
+    between two feature sets [F, K, ...] of frames, paired within each
+    ``block`` of keypoints."""
     unpaired, total, gap = 0, 0, 0.0
     n_f, k = ref.valid.shape
-    for lo in range(0, k, per_octave):
-        sl = slice(lo, lo + per_octave)
+    for lo in range(0, k, block):
+        sl = slice(lo, lo + block)
         pv, rv = prog.valid[:, sl], ref.valid[:, sl]
         duv = (prog.uv[:, sl, None, :].double()
                - ref.uv[:, None, sl, :]).abs().amax(-1)  # [F, Kp, Kr]
@@ -145,20 +161,33 @@ def summarise(stages: list[float], miss: int, total: int, fgap: float,
 
 class Reference:
     """The plain reference of one configuration (its JSON dict) on one
-    device: float64, or with ``control`` float32 with TF32 on."""
+    device: float64, or with ``control`` float32 with TF32 on. Its parts
+    follow the configuration (see the module docstring)."""
 
     def __init__(self, config: dict, device, control: bool = False):
         self.device = torch.device(device)
         self.control = control
         self.dtype = torch.float32 if control else torch.float64
         self.settings = ekf.Settings.of(config["slam"])
+        if self.settings.matcher not in ("desc", "ncc_warp"):
+            raise ValueError(f"the reference has no map matcher "
+                             f"{self.settings.matcher!r}")
         self.k = config["n_landmarks"]
         fe = dict(config["frontend"])
-        if fe.pop("extractor") != "sift" or not fe.pop("upright", True):
-            raise ValueError("the reference defines the upright SIFT "
-                             "frontend only")
+        extractor = fe.pop("extractor")
+        if extractor == "sift" and fe.pop("upright", True):
+            self.extract = sift.sift_features
+            self.block = fe["keypoints_per_octave"]
+        elif extractor == "fast":
+            self.extract = fast.fast_features
+            self.block = fe["max_features"]
+        else:
+            raise ValueError(f"the reference has no frontend {extractor!r} "
+                             f"with {fe}")
         self.frontend = fe
-        self.per_octave = fe["keypoints_per_octave"]
+        self.images = config["images_to_slam"]
+        self.prior = self.images and config["slam"].get(
+            "initial_orientation", True)
 
     def features(self, intensity, xyz, conf) -> sift.Features:
         """The frontend over [F, ...] frames, ``FRAME_CHUNK`` at a time."""
@@ -166,31 +195,43 @@ class Reference:
         with tf32(self.control):
             for lo in range(0, intensity.shape[0], FRAME_CHUNK):
                 hi = lo + FRAME_CHUNK
-                parts.append(sift.sift_features(
+                parts.append(self.extract(
                     intensity[lo:hi], xyz[lo:hi], conf[lo:hi],
                     dtype=self.dtype, **self.frontend))
         return sift.Features(*(torch.cat(x) for x in zip(*parts)))
 
-    def bootstrap(self, feats0) -> ekf.State:
+    def bootstrap(self, feats0, image, xyz, seed: int) -> ekf.State:
+        """The bootstrap on frame 0's features, and with images its
+        intensity and xyz image, from a generator seeded as the
+        program's (the plane fit's draw, where it runs)."""
+        gen = torch.Generator(self.device).manual_seed(seed)
         with tf32(self.control):
-            return ekf.bootstrap(feats0, self.k, self.settings, self.dtype)
+            q0 = None if not self.prior else plane_fit.initial_orientation(
+                xyz.to(self.dtype), plane_fit.draw(gen, self.device))
+            return ekf.bootstrap(feats0, self.k, self.settings, self.dtype,
+                                 q0, image if self.images else None)
 
     def generator(self, seed: int, steps_before: int,
                   n_feats: int) -> torch.Generator:
         """A generator seeded as the program's, past the draws of the
-        bootstrap (none) and of ``steps_before`` steps."""
+        bootstrap (the plane fit's, where it runs) and of
+        ``steps_before`` steps."""
         gen = torch.Generator(self.device).manual_seed(seed)
+        if self.prior:
+            plane_fit.draw(gen, self.device)
         for _ in range(steps_before):
             ekf.draw(self.settings, n_feats, self.k, gen, self.device)
         return gen
 
-    def step(self, state, prev, cur, index: int,
-             gen: torch.Generator) -> ekf.State:
+    def step(self, state, prev, cur, index: int, gen: torch.Generator,
+             image=None) -> ekf.State:
         """Step ``index`` from ``state`` (the program's, or the
-        reference's own) and the features of its two frames."""
+        reference's own), the features of its two frames and, where the
+        filter is given images, the frame's intensity ``image``."""
         with tf32(self.control):
             return ekf.step(ekf.as_state(state, self.dtype), prev, cur, index,
-                            self.settings, gen)
+                            self.settings, gen,
+                            image if self.images else None)
 
 
 def clone_states(run):

@@ -197,18 +197,18 @@ def compare(ref: check.Reference, system: System, dev, kept: dict, seed: int,
         pf = check.program_features(feats) if control is None else (
             control.features(im, xyz, conf))
         check.note("features recomputed")
-        m, tot, g = check.feature_numbers(pf, rf, ref.per_octave)
+        m, tot, g = check.feature_numbers(pf, rf, ref.block)
         miss, total, fgap = miss + m, total + tot, max(fgap, g)
-        r0 = ref.bootstrap(check.frame(rf, 0))
+        r0 = ref.bootstrap(check.frame(rf, 0), im[0], xyz[0], gseed)
         p0 = run.state0 if control is None else control.bootstrap(
-            check.frame(pf, 0))
+            check.frame(pf, 0), im[0], xyz[0], gseed)
         stages.append(check.state_gap(p0, r0))
         for i in steps:
             before = run.before[i]
             out = ref.step(before, check.frame(rf, i - 1), check.frame(rf, i),
-                           i, ref.generator(gseed, i - 1, n_feats))
+                           i, ref.generator(gseed, i - 1, n_feats), im[i])
             after = run.before[i + 1] if control is None else side.step(
                 before, check.frame(pf, i - 1), check.frame(pf, i), i,
-                side.generator(gseed, i - 1, n_feats))
+                side.generator(gseed, i - 1, n_feats), im[i])
             stages.append(check.state_gap(after, out))
     return check.summarise(stages, miss, total, fgap, replay)

@@ -1,9 +1,11 @@
 """The inverse-depth EKF-SLAM step as the configuration defines it,
 written plainly with a dense measurement matrix: prediction with the
 VO increment as control, map matching by descriptors inside the 3σ
-search region, 1-point RANSAC (three matches per hypothesis), the
-low-innovation update, the χ² rescue of the rest and its update, and
-map management (delete, Cartesian conversion, new landmarks).
+search region (or, with ``matcher`` "ncc_warp", by the warped-patch
+NCC scan of the frame, ``ncc.py``), 1-point RANSAC (three matches per
+hypothesis), the low-innovation update, the χ² rescue of the rest and
+its update, and map management (delete, Cartesian conversion, new
+landmarks).
 
 Every Jacobian is the derivative of the plain function it belongs to
 (``torch.func``); every update is the textbook one, K = P·Hᵀ·S⁻¹ and
@@ -21,6 +23,7 @@ import torch
 from torch.func import jacfwd, jacrev, vmap
 
 from port_bench.reference import geometry as geo
+from port_bench.reference import ncc
 from port_bench.reference.vo import gumbel, match, odometry, topk_stable
 
 CAM, LM = 13, 6
@@ -61,6 +64,8 @@ class Settings(NamedTuple):
     ransac_batch: int = 256
     max_adds: int = 8
     dt: float = 0.1
+    matcher: str = "desc"  # or "ncc_warp"
+    ncc_threshold: float = 0.60
 
     @staticmethod
     def of(slam: dict) -> "Settings":
@@ -289,13 +294,14 @@ def convert(st: State, limit: int = 16) -> State:
 
 
 def add(st: State, frame, h_gate, step: int, n_measured: int,
-        max_adds: int, min_measured: int) -> State:
+        max_adds: int, min_measured: int, image=None) -> State:
     """While under ``min_measured`` matches were measured, up to
     ``max_adds`` new inverse-depth landmarks from the frame's highest-
     scoring features with depth over 0.2 m and over 10 px from every
     active landmark's prediction, into the free slots in index order:
     ρ = 1/|xyz|, σ_ρ = 0.01·max(ρ², 1/1.5²), unit pixel noise; the new
-    rows are ∂y/∂camera times the camera's."""
+    rows are ∂y/∂camera times the camera's. With the frame's ``image``
+    each new landmark keeps its raw init patch (``ncc.raw_patches``)."""
     k = st.active.shape[0]
     dmap = torch.linalg.vector_norm(frame.uv[:, None] - h_gate[None], dim=-1)
     dmap = torch.where(st.active[None], dmap, math.inf)
@@ -338,6 +344,9 @@ def add(st: State, frame, h_gate, step: int, n_measured: int,
         out[slot] = value
         return out
 
+    if image is not None:
+        st = st._replace(init_patch=put(st.init_patch, ncc.raw_patches(
+            image.to(st.init_patch.dtype), uv.to(st.init_patch.dtype))))
     return st._replace(
         x=x, p=symmetric(a @ st.p @ a.T + noise),
         active=put(st.active, True), is_id=put(st.is_id, True),
@@ -350,10 +359,16 @@ def add(st: State, frame, h_gate, step: int, n_measured: int,
         init_cam=put(st.init_cam, cam[:7].to(st.init_cam.dtype)))
 
 
-def bootstrap(frame, k: int, s: Settings, dtype) -> State:
-    """The filter started on frame 0: up to 4·max_adds landmarks."""
+def bootstrap(frame, k: int, s: Settings, dtype, q0=None,
+              image=None) -> State:
+    """The filter started on frame 0: the orientation ``q0`` where the
+    plane-fit prior gives one, and up to 4·max_adds landmarks (with
+    their init patches from frame 0's ``image`` where given)."""
     st = initial_state(k, frame.desc.shape[-1], dtype, frame.uv.device)
-    return add(st, frame, measure(st).h, 0, 0, 4 * s.max_adds, s.min_measured)
+    if q0 is not None:
+        st = st._replace(x=torch.cat([st.x[:3], q0.to(dtype), st.x[7:]]))
+    return add(st, frame, measure(st).h, 0, 0, 4 * s.max_adds, s.min_measured,
+               image)
 
 
 def draw(s: Settings, n_feats: int, k: int, gen: torch.Generator, device):
@@ -365,9 +380,11 @@ def draw(s: Settings, n_feats: int, k: int, gen: torch.Generator, device):
 
 
 def step(st: State, prev, cur, index: int, s: Settings,
-         gen: torch.Generator) -> State:
+         gen: torch.Generator, image=None) -> State:
     """Step ``index``: from the filter after frame index − 1 (``prev``'s
-    features) to the filter after frame ``index`` (``cur``'s)."""
+    features) to the filter after frame ``index`` (``cur``'s), and the
+    frame's intensity ``image`` where the configuration gives the
+    filter images (the NCC scan, the new landmarks' init patches)."""
     dtype, dev = st.x.dtype, st.x.device
     g_vo, g_r = draw(s, cur.uv.shape[0], st.active.shape[0], gen, dev)
     k = st.active.shape[0]
@@ -397,15 +414,19 @@ def step(st: State, prev, cur, index: int, s: Settings,
 
     # 2. matching of the map inside its search regions
     m = measure(st)
-    gate = torch.clamp(3 * torch.sqrt(torch.maximum(
-        m.s[:, 0, 0], m.s[:, 1, 1]).clamp(min=1e-9)), max=40.0)
-    mt = match(st.desc, cur.desc, m.visible, cur.valid, s.match_ratio)
-    z = cur.uv[mt.index]
-    ic = mt.accepted & m.visible & (
-        torch.linalg.vector_norm(z - m.h, dim=-1) <= gate)
-    z = torch.where(ic[:, None], z, 0.0)
-    st = st._replace(desc=torch.where(ic[:, None], cur.desc[mt.index],
-                                      st.desc))
+    if s.matcher == "ncc_warp":
+        z, ic = ncc.scan(st, m.h, m.s, m.visible, image.to(dtype),
+                         s.ncc_threshold)
+    else:
+        gate = torch.clamp(3 * torch.sqrt(torch.maximum(
+            m.s[:, 0, 0], m.s[:, 1, 1]).clamp(min=1e-9)), max=40.0)
+        mt = match(st.desc, cur.desc, m.visible, cur.valid, s.match_ratio)
+        z = cur.uv[mt.index]
+        ic = mt.accepted & m.visible & (
+            torch.linalg.vector_norm(z - m.h, dim=-1) <= gate)
+        z = torch.where(ic[:, None], z, 0.0)
+        st = st._replace(desc=torch.where(ic[:, None], cur.desc[mt.index],
+                                          st.desc))
 
     # 3. 1-point RANSAC, its update, the rescue and its update
     li = ransac(st, m, z, ic, g_r, pool)
@@ -428,4 +449,4 @@ def step(st: State, prev, cur, index: int, s: Settings,
     st = delete(st, index)
     st = convert(st)
     return add(st, cur, m2.h, index, int(measured.sum()), s.max_adds,
-               s.min_measured)
+               s.min_measured, image)

@@ -28,6 +28,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import faulthandler  # noqa: E402
 import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -173,6 +174,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
+    # a crash in native code prints every thread's Python stack
+    faulthandler.enable()
     # the package by its name from the checkout's root, not this
     # script's folder by its modules' bare names
     sys.path[:] = [str(ROOT)] + [p for p in sys.path

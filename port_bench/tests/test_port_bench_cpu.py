@@ -13,9 +13,9 @@ import torch
 
 from port_bench import check, evaluate, roofline, run as bench, traffic
 from port_bench.render import render_sequence
-
-BENCHMARK = json.loads((bench.ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in BENCHMARK["workloads"]]
+from port_bench.tests.cells import (
+    BENCHMARK, CELLS, CHECKED, NCC, NCC_CONFIG, spec_of,
+)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
@@ -124,7 +124,7 @@ def test_gaps():
 
 
 def tiny(workload: str) -> dict:
-    spec = bench.load_spec(workload)
+    spec = spec_of(workload)
     spec["config"]["n_landmarks"] = 48
     spec["traffic"].update(frames=8, pool=2)
     return spec
@@ -135,7 +135,7 @@ def tiny_run(workload: str, seed: int = 2**31 + 11) -> dict:
                           workers=2)
 
 
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", CHECKED)
 def test_a_tiny_run_of_the_port_is_correct(workload):
     res = tiny_run(workload)
     assert res["correct"], res["numbers"]
@@ -208,6 +208,92 @@ def test_the_reference_step_agrees_with_the_ports():
     assert max(gaps) < 1e-5, gaps
 
 
+def test_the_reference_fast_frontend_agrees_with_the_port():
+    from pre3_tpu_torch.frontend.pipeline import fast_features
+
+    from port_bench.reference import fast
+
+    im, xyz, conf = frames()
+    fe = {k: v for k, v in NCC_CONFIG["frontend"].items() if k != "extractor"}
+    prog = fast_features(im, xyz, conf, **fe)
+    ref = fast.fast_features(im, xyz, conf, **fe)
+    miss, total, gap = check.feature_numbers(prog, ref, fe["max_features"])
+    assert total > 600 and miss == 0 and gap < 1e-5
+    # a threshold a tenth higher leaves out corners and moves the top-K
+    other = fast.fast_features(im, xyz, conf, **dict(fe, threshold=0.055))
+    assert check.feature_numbers(other, ref, fe["max_features"])[0] > 0
+
+
+def test_the_reference_ncc_step_agrees_with_the_ports():
+    from pre3_tpu_torch.ekf.slam import SlamConfig, bootstrap_body, slam_step
+    from pre3_tpu_torch.frontend.pipeline import fast_features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+
+    im, xyz, conf = frames(4)
+    fe = {k: v for k, v in NCC_CONFIG["frontend"].items() if k != "extractor"}
+    pf = fast_features(im, xyz, conf, **fe)
+    config = dict(NCC_CONFIG, n_landmarks=64)
+    ref = check.Reference(config, "cpu")
+    rf = ref.features(im, xyz, conf)
+    cfg, cam = SlamConfig(**config["slam"]), sr4000_camera()
+    gen = torch.Generator().manual_seed(7)
+    st = bootstrap_body(cam, check.frame(pf, 0), cfg, 64, xyz_img=xyz[0],
+                        image=im[0], generator=gen)
+    gaps = [check.state_gap(st, ref.bootstrap(check.frame(rf, 0), im[0],
+                                              xyz[0], 7))]
+    matched = 0
+    for i in (1, 2, 3):
+        assert ref.generator(7, i - 1, 256).get_state().equal(gen.get_state())
+        new, (stats, _) = slam_step(
+            cam, st, check.frame(pf, i), check.frame(pf, i - 1),
+            torch.tensor(i, dtype=torch.int32), cfg, generator=gen,
+            image=im[i], xyz_img=xyz[i])
+        out = ref.step(st, check.frame(rf, i - 1), check.frame(rf, i), i,
+                       ref.generator(7, i - 1, 256), im[i])
+        gaps.append(check.state_gap(new, out))
+        matched += int(stats.n_ic)
+        st = new
+    assert matched > 40 and max(gaps) < 1e-5, (matched, gaps)
+
+
+def floor_view(tilt_deg=(12.0, 0.0, 6.0)):
+    """[H, W, 3] xyz image of a camera 1.2 m above a floor, pitched and
+    rolled by ``tilt_deg`` (about x, y, z), with 2 mm of noise; the upper
+    rows see nothing."""
+    from port_bench.reference import geometry as geo
+
+    v, u = torch.meshgrid(torch.arange(144.0, dtype=torch.float64),
+                          torch.arange(176.0, dtype=torch.float64),
+                          indexing="ij")
+    n = geo._centred(geo.undistort(torch.stack([u, v], -1)))
+    ray = torch.cat([n, torch.ones_like(n[..., :1])], -1)
+    q = geo.euler_quaternion(torch.deg2rad(torch.tensor(
+        tilt_deg, dtype=torch.float64)))
+    down = geo.rotate(q, ray)[..., 1]
+    s = torch.where(down > 0.05, 1.2 / down, torch.nan)
+    noise = torch.randn(144, 176, 3, generator=torch.Generator().manual_seed(
+        3), dtype=torch.float64)
+    return (ray * s[..., None] + 0.002 * noise).float()
+
+
+def test_the_reference_plane_fit_agrees_with_the_port():
+    from pre3_tpu_torch.backend.plane_fit import initial_orientation_from_floor
+
+    from port_bench.reference import plane_fit
+
+    xyz = floor_view()
+    g = plane_fit.draw(torch.Generator().manual_seed(9), "cpu")
+    q, ok = initial_orientation_from_floor(torch.nan_to_num(xyz), gumbel=g)
+    ref = plane_fit.initial_orientation(torch.nan_to_num(xyz).double(), g)
+    assert bool(ok) and float(ref[0]) < 0.999
+    assert float((q.double() - ref).abs().max()) < 1e-5
+    # a wall (tilted 90 degrees) gives no prior on either side
+    wall = floor_view((90.0, 0.0, 0.0))
+    ref = plane_fit.initial_orientation(torch.nan_to_num(wall).double(), g)
+    q, ok = initial_orientation_from_floor(torch.nan_to_num(wall), gumbel=g)
+    assert not bool(ok) and ref.tolist() == [1.0, 0.0, 0.0, 0.0]
+
+
 def _frozen_state(slam_step):
     def step(cam, state, *a, **k):
         return state, slam_step(cam, state, *a, **k)[1]
@@ -223,7 +309,7 @@ def _altered_pose(slam_step):
 
 
 @pytest.mark.parametrize("fault", [_frozen_state, _altered_pose])
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", CHECKED)
 def test_a_broken_step_comes_out_not_correct(monkeypatch, fault, workload):
     import pre3_tpu_torch.ekf.slam as slam
 
@@ -259,6 +345,81 @@ def test_altered_features_come_out_not_correct(monkeypatch):
 
     monkeypatch.setattr(pipeline, "sift_features", altered)
     res = tiny_run("sift_ekf.corridor")
+    assert not res["correct"], res["numbers"]
+
+
+def test_a_skipped_plane_prior_comes_out_not_correct():
+    """The corridor's frame 0 shows a wall, which gives no prior (the
+    identity, on both sides), so a skipped fit changes no output there;
+    where frame 0 shows a floor, the bootstrap's check catches it."""
+    from pre3_tpu_torch.ekf.slam import SlamConfig, bootstrap_body
+    from pre3_tpu_torch.frontend.pipeline import fast_features
+    from pre3_tpu_torch.geometry.camera import sr4000_camera
+
+    im, _, conf = frames(1)
+    xyz = torch.nan_to_num(floor_view())[None]
+    fe = {k: v for k, v in NCC_CONFIG["frontend"].items() if k != "extractor"}
+    pf = check.frame(fast_features(im, xyz, conf, **fe), 0)
+    ref = check.Reference(dict(NCC_CONFIG, n_landmarks=64), "cpu")
+    r0 = ref.bootstrap(check.frame(ref.features(im, xyz, conf), 0), im[0],
+                       xyz[0], 11)
+    gaps = []
+    for prior in (True, False):
+        cfg = SlamConfig(**dict(NCC_CONFIG["slam"], initial_orientation=prior))
+        st = bootstrap_body(sr4000_camera(), pf, cfg, 64, xyz_img=xyz[0],
+                            image=im[0],
+                            generator=torch.Generator().manual_seed(11))
+        gaps.append(check.state_gap(st, r0))
+    assert gaps[0] < 1e-5 < check.STAGE_TOL < gaps[1], gaps
+
+
+class _SecondBest:
+    """``torch`` for the NCC scan's module, whose argmax takes the second
+    best candidate."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def argmax(x, dim):
+        return torch.topk(x, 2, dim=dim).indices.select(dim, 1)
+
+
+def _second_best_candidate(monkeypatch):
+    from pre3_tpu_torch.ekf import ncc_matching
+
+    monkeypatch.setattr(ncc_matching, "torch", _SecondBest())
+
+
+def _unwarped_init_patch(monkeypatch):
+    from pre3_tpu_torch.ekf import ncc_matching
+
+    def unwarped(cam, init_patches, *a, patch=11, **k):
+        c = (init_patches.shape[-1] - patch) // 2
+        p = init_patches[:, c:c + patch, c:c + patch].flatten(1)
+        p = p - p.mean(-1, keepdim=True)
+        return p / torch.linalg.vector_norm(p, dim=-1, keepdim=True).clamp(
+            min=1e-8)
+
+    monkeypatch.setattr(ncc_matching, "predict_patches", unwarped)
+
+
+def _fast_threshold_changed(monkeypatch):
+    import pre3_tpu_torch.frontend.pipeline as pipeline
+
+    body = pipeline.fast_features
+
+    def changed(*a, threshold, **k):
+        return body(*a, threshold=threshold * 1.1, **k)
+
+    monkeypatch.setattr(pipeline, "fast_features", changed)
+
+
+@pytest.mark.parametrize("fault", [
+    _second_best_candidate, _unwarped_init_patch, _fast_threshold_changed])
+def test_a_broken_ncc_path_comes_out_not_correct(monkeypatch, fault):
+    fault(monkeypatch)
+    res = tiny_run(NCC)
     assert not res["correct"], res["numbers"]
 
 
