@@ -15,6 +15,19 @@ coordinate are blended into [K, G·P, W], then the two columns of every
 candidate column coordinate into [K, G·P, G·P]. All in f32 (the port
 keeps TF32 off). ``torch.linalg.inv_ex`` inverts S without the error
 check that would wait for the card.
+
+A slot the scan does not measure (out of view or inactive, or with a
+non-finite pixel or S) is held at the image's centre with the smallest
+gate before anything is read: an inactive slot is a Cartesian point at
+the world origin, whose pixel overflows and whose S reads NaN when the
+camera's plane passes near the origin, and a NaN coordinate would floor
+to an index outside the image. Such a slot is never matched, and no
+measured slot's value depends on it.
+
+While the tracer is on, two more probes of the stage ``slam_step.match``
+split it: one before the warp of the init patches (``predict_patches``),
+one before the candidate scan (gathers, NCC, the best candidate and its
+xyz sample).
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from pre3_tpu_torch.frontend.patch_warp import predict_patches
 from pre3_tpu_torch.frontend.patches import bilinear_sample
 from pre3_tpu_torch.geometry.camera import Camera
 from pre3_tpu_torch.geometry.inverse_depth import inverse_depth_to_cartesian
+from pre3_tpu_torch.utils import profiling
 from pre3_tpu_torch.utils.device import cached_constant
 
 CHI2_2DOF_95 = 5.9915  # χ²(2, 0.95) — the reference's ellipse gate
@@ -66,30 +80,42 @@ def search_ic_matches_ncc(
     Mahalanobis ellipse of S and the image bounds."""
     k = state.n_landmarks
     dt, dev = image.dtype, image.device
+    h_img, w_img = image.shape
     lms = state.landmarks
     lms_w = torch.where(state.is_id[:, None],
                         inverse_depth_to_cartesian(lms), lms[:, :3])
+    # unmeasured slots at the image's centre with S = (min gate / 3)²·I
+    # (see the module docstring): every coordinate below is finite
+    eye2 = torch.eye(2, dtype=dt, device=dev)
+    live = (obs.visible & state.active & torch.isfinite(obs.h).all(-1)
+            & torch.isfinite(obs.s).flatten(1).all(-1))  # [K]
+    centre = cached_constant(
+        ("ncc_centre", h_img, w_img, dt),
+        lambda: torch.tensor([w_img / 2.0, h_img / 2.0], dtype=dt), dev)
+    h = torch.where(live[:, None], obs.h, centre)
+    s = torch.where(live[:, None, None], obs.s,
+                    (min_gate_px / 3.0) ** 2 * eye2)
+    profiling.probe("slam_step.match", dev)  # the warp
     pred_desc = predict_patches(
         cam, state.init_patch, state.init_uv, state.init_cam, state.x[0:7],
-        lms_w, obs.h, patch=patch)  # [K, P²]
+        lms_w, h, patch=patch)  # [K, P²]
+    profiling.probe("slam_step.match", dev)  # the scan
 
     # per-feature candidate grid spanning the 3σ box of S (clamped)
-    sig_u = torch.sqrt(torch.clamp(obs.s[:, 0, 0], min=1e-9))
-    sig_v = torch.sqrt(torch.clamp(obs.s[:, 1, 1], min=1e-9))
+    sig_u = torch.sqrt(torch.clamp(s[:, 0, 0], min=1e-9))
+    sig_v = torch.sqrt(torch.clamp(s[:, 1, 1], min=1e-9))
     r_u = torch.clamp(3.0 * sig_u, min_gate_px, max_gate_px)
     r_v = torch.clamp(3.0 * sig_v, min_gate_px, max_gate_px)
     lin = grid_unit(grid, dt, dev)
     gv, gu = torch.meshgrid(lin, lin, indexing="ij")
     unit = torch.stack([gu, gv], dim=-1).reshape(-1, 2)  # [G², 2]
     radii = torch.stack([r_u, r_v], dim=-1)  # [K, 2]
-    centers = obs.h[:, None, :] + unit[None] * radii[:, None, :]  # [K, G², 2]
+    centers = h[:, None, :] + unit[None] * radii[:, None, :]  # [K, G², 2]
 
     # ellipse + image-bounds gate per candidate
-    d = centers - obs.h[:, None, :]
-    eye2 = torch.eye(2, dtype=dt, device=dev)
-    s_inv, _ = torch.linalg.inv_ex(obs.s + 1e-9 * eye2[None])  # [K, 2, 2]
+    d = centers - h[:, None, :]
+    s_inv, _ = torch.linalg.inv_ex(s + 1e-9 * eye2[None])  # [K, 2, 2]
     mahal = torch.einsum("kca,kab,kcb->kc", d, s_inv, d)
-    h_img, w_img = image.shape
     inb = ((centers[..., 0] > patch) & (centers[..., 0] < w_img - patch - 1)
            & (centers[..., 1] > patch) & (centers[..., 1] < h_img - patch - 1))
     cand_ok = (mahal <= CHI2_2DOF_95) & inb  # [K, G²]
@@ -103,9 +129,9 @@ def search_ic_matches_ncc(
               + offs[None, :, None]).reshape(gp, k)
     v_axis = (lin[:, None, None] * r_v[None, None, :]
               + offs[None, :, None]).reshape(gp, k)
-    u_coords = torch.clamp((obs.h[:, 0][None, :] + u_axis).T, 0.0,
+    u_coords = torch.clamp((h[:, 0][None, :] + u_axis).T, 0.0,
                            w_img - 1.001)  # [K, G·P]
-    v_coords = torch.clamp((obs.h[:, 1][None, :] + v_axis).T, 0.0,
+    v_coords = torch.clamp((h[:, 1][None, :] + v_axis).T, 0.0,
                            h_img - 1.001)
     v0f, u0f = torch.floor(v_coords), torch.floor(u_coords)
     dv, du = v_coords - v0f, u_coords - u0f
@@ -129,7 +155,7 @@ def search_ic_matches_ncc(
     best_ncc = torch.gather(ncc, 1, best[:, None])[:, 0]
     z = torch.gather(centers, 1, best[:, None, None].expand(k, 1, 2))[:, 0]
 
-    ic = obs.visible & state.active & (best_ncc >= ncc_threshold)
+    ic = live & (best_ncc >= ncc_threshold)
     z = torch.where(ic[:, None], z, 0.0)
     if xyz_img is not None:
         chans = xyz_img.permute(2, 0, 1)  # [3, H, W]

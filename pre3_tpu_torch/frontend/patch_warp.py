@@ -10,7 +10,9 @@ bilinear sample of the init patch.
 
 The reference reads the init patch by a one-hot contraction ([P², PB²]
 weights per feature), a TPU form; here the same four taps are gathered,
-with the same clip and floor. Every function is batched over features.
+with the same clip and floor; a NaN position reads the first tap (its
+weights stay NaN), never an index outside the patch. Every function is
+batched over features.
 """
 
 from __future__ import annotations
@@ -87,7 +89,11 @@ def predict_patches(
     u0 = torch.floor(u)
     v0 = torch.floor(v)
     du, dv = u - u0, v - v0
-    idx = v0.to(torch.int64) * pb + u0.to(torch.int64)  # [K, P²]
+    # the tap's index, exact in f32 (< pb²); a NaN position (an
+    # inactive slot's: a non-finite pixel, or its zero init pose seeing
+    # the point on its own plane) reads tap 0 with NaN weights, so its
+    # row is NaN and no index leaves the patch
+    idx = torch.nan_to_num(v0 * pb + u0, nan=0.0).to(torch.int64)  # [K, P²]
     flat = init_patches.reshape(k, pb * pb)
     tap = lambda off: torch.gather(flat, 1, idx + off)  # noqa: E731
     # the reference's weights times taps, summed in tap-index order

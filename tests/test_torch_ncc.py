@@ -213,3 +213,85 @@ def test_search_ic_matches_ncc_matches_jax(scene, jax_map):
         to_torch(st, device="cpu"), torch.as_tensor(intensity[1]))
     assert not no_xyz.z_xyz.any() and np.array_equal(no_xyz.ic.numpy(),
                                                      got.ic)
+
+
+def test_unmeasured_slots_stay_inside_the_image(scene, jax_map):
+    """A slot with a NaN pixel and S (still flagged visible) and one
+    whose pixel overflowed to ±3.4e31 (out of view) are scanned about
+    the image's centre: no index leaves the image, neither is matched,
+    their z and z_xyz are 0, and every other slot's z, ic and z_xyz are
+    bit-equal to the scan without them."""
+    _, (intensity, xyz), pose1 = scene
+    ref_map, _ = jax_map
+    st = ref_map._replace(x=ref_map.x.copy())
+    st.x[0:7] = pose1
+    tst = to_torch(st, device="cpu")
+    obs = to_torch(jax.tree.map(np.asarray, jax.jit(functools.partial(
+        jpredict, jcamera()))(jax.tree.map(jnp.asarray, st))), device="cpu")
+    args = (torch.as_tensor(intensity[1]),)
+    kw = dict(xyz_img=torch.as_tensor(xyz[1]))
+    plain = search_ic_matches_ncc(tcamera(), obs, tst, *args, **kw)
+    nan_slot, far_slot = torch.nonzero(plain.ic)[:2, 0].tolist()
+    h, s, visible = obs.h.clone(), obs.s.clone(), obs.visible.clone()
+    h[nan_slot], s[nan_slot] = float("nan"), float("nan")
+    h[far_slot] = torch.tensor([3.4e31, -3.4e31])
+    visible[far_slot] = False
+    got = search_ic_matches_ncc(
+        tcamera(), obs._replace(h=h, s=s, visible=visible), tst, *args, **kw)
+    dead = torch.zeros(K, dtype=torch.bool)
+    dead[[nan_slot, far_slot]] = True
+    assert not got.ic[dead].any()
+    assert not got.z[dead].any() and not got.z_xyz[dead].any()
+    for name in ("z", "ic", "z_xyz"):
+        assert torch.equal(getattr(got, name)[~dead],
+                           getattr(plain, name)[~dead]), name
+    assert torch.isnan(got.h[nan_slot]).all()  # obs passes through
+
+
+def test_predict_patches_reads_inside_a_dead_slots_patch():
+    """An inactive slot (zero init patch, pixel and pose, a landmark at
+    the world origin) with a NaN or overflowed pixel reads no tap outside
+    its patch; its row is NaN, and every other row is bit-equal to the
+    warp without it."""
+    args = [torch.as_tensor(a) for a in _warp_problem(16, seed=3)]
+    plain = tpw.predict_patches(tcamera(), *args)
+    patches, init_uv, init_cams, cur_cam, lms, h_pred = (
+        a.clone() for a in args)
+    for slot, h in ((4, [float("nan")] * 2), (9, [3.4e31, -3.4e31]),
+                    (11, [88.0, 72.0])):
+        patches[slot], init_uv[slot], init_cams[slot], lms[slot] = 0, 0, 0, 0
+        h_pred[slot] = torch.tensor(h)
+    got = tpw.predict_patches(tcamera(), patches, init_uv, init_cams,
+                              cur_cam, lms, h_pred)
+    live = torch.ones(16, dtype=torch.bool)
+    live[[4, 9, 11]] = False
+    assert torch.equal(got[live], plain[live])
+    assert torch.isnan(got[[4, 9]]).all()
+
+
+def test_ncc_step_with_the_origin_on_the_camera_plane(scene):
+    """One ncc_warp slam_step from a map with free slots (zeros: a
+    Cartesian point at the world origin) whose camera has the origin on
+    its own plane, so that those slots' pixels and S are not finite: the
+    step completes and its state is finite."""
+    from pre3_tpu_torch.ekf import slam as tslam
+    from pre3_tpu_torch.ekf.measurement import predict_measurements
+
+    feats, (intensity, xyz), _ = scene
+    cfg = tslam.SlamConfig(matcher="ncc_warp", motion_model="cv",
+                           min_measured=50, max_update_slots=24)
+    frames = [to_torch(_frame(feats, i), device="cpu") for i in (0, 1)]
+    images = [torch.as_tensor(a) for a in intensity]
+    gen = torch.Generator().manual_seed(3)
+    st = tslam.bootstrap_state(tcamera(), frames[0], cfg, 2 * KF,
+                               image=images[0], generator=gen)
+    # the camera 1 m along x from the origin, looking along z, at rest
+    st = st._replace(x=torch.cat([torch.tensor([1.0, 0.0, 0.0]),
+                                  st.x[3:7], torch.zeros(6), st.x[13:]]))
+    assert (~st.active).sum() >= KF
+    obs = predict_measurements(tcamera(), st)
+    assert not torch.isfinite(obs.h[~st.active]).all()
+    new, _ = tslam.slam_step(
+        tcamera(), st, frames[1], frames[0], torch.tensor(1, dtype=torch.int32),
+        cfg, generator=gen, image=images[1], xyz_img=torch.as_tensor(xyz[1]))
+    assert torch.isfinite(new.x).all() and torch.isfinite(new.p).all()

@@ -3,7 +3,8 @@ it records nothing and builds nothing; the span tree (parents, request
 ids, self time) and its Chrome trace; the host clock against
 torch.profiler's; the clock mapping's arithmetic; a traced run_slam's
 stage probes, its bit-equality with an untraced one and the ops both
-dispatch; and the step program's graphs keyed by tracing state."""
+dispatch; the NCC scan's two extra match probes; and the step program's
+graphs keyed by tracing state."""
 
 import json
 
@@ -25,13 +26,18 @@ CFG = slam.SlamConfig(match_ratio=1.3, min_measured=50, max_update_slots=24)
 
 
 @pytest.fixture(scope="module")
-def feats():
+def images():
+    """The rendered frames' intensity, xyz and confidence images."""
     frames, _, _ = render_sequence(n_frames=N_FRAMES, n_points=300,
                                    noise=0.004)
-    im = [torch.as_tensor(np.nan_to_num(np.stack([getattr(f, a)
-                                                  for f in frames])))
-          for a in ("intensity", "xyz", "confidence")]
-    return extract_features(*im, threshold=0.05, max_features=64)
+    return [torch.as_tensor(np.nan_to_num(np.stack([getattr(f, a)
+                                                    for f in frames])))
+            for a in ("intensity", "xyz", "confidence")]
+
+
+@pytest.fixture(scope="module")
+def feats(images):
+    return extract_features(*images, threshold=0.05, max_features=64)
 
 
 def _run(feats):
@@ -179,6 +185,34 @@ def test_traced_run_slam_probes_each_stage_and_changes_nothing(feats):
     assert names.count("scan.stage_rows") == 1
     run = next(s for s in ex["spans"] if s["name"] == "run_slam")
     assert all(s["request"] == run["request"] for s in ex["spans"])
+
+
+@pytest.mark.parametrize("matcher,probes", [("desc", 1), ("ncc_warp", 3)])
+def test_match_stage_probes_by_matcher(feats, images, matcher, probes):
+    """The descriptor matcher's step probes its match stage once; the
+    NCC scan's three times, all with the stage's tag (the stage, then
+    the warp, then the scan), so the stage still runs to the RANSAC
+    probe. Traced and untraced runs are bit-equal, and an untraced run
+    records nothing."""
+    cfg = CFG._replace(matcher=matcher)
+
+    def run():
+        return slam.run_slam(sr4000_camera(), feats, cfg, K,
+                             generator=torch.Generator().manual_seed(5),
+                             images=images[0], xyz_imgs=images[1])
+
+    with profiling.tracing():
+        traced = run()
+    tags = [p[0] for p in profiling.export()["probes"]]
+    plain = run()
+    assert [p[0] for p in profiling.export()["probes"]] == tags
+    for a, b in zip(tree_leaves(plain), tree_leaves(traced)):
+        assert torch.equal(a, b)
+    step = (["scan_steps.begin", "slam_step.vo", "slam_step.predict"]
+            + ["slam_step.match"] * probes
+            + [f"slam_step.{s}" for s in slam.STAGES[3:]]
+            + ["scan_steps.end"])
+    assert tags[2:] == step * (N_FRAMES - 1)
 
 
 def test_skipped_stages_emit_no_probe(feats):
