@@ -45,12 +45,16 @@ device, and imports nothing of JAX. Phases:
 
   1. device     — the card's name and power limit (nvidia-smi);
   2. build      — compile or load K1 (RANSAC scorer), K2 (streaming
-                  matcher) and K3 (new landmarks and their Jacobians),
-                  with ptxas registers/spills;
-  3. kernel     — K1, K2 and K3 vs their plain versions on the card,
+                  matcher), K3 (new landmarks and their Jacobians) and
+                  K4 (the VO increment's IFT covariance), with ptxas
+                  registers/spills;
+  3. kernel     — K1, K2, K3 and K4 vs their plain versions on the card,
                   timed (K3 at a step's A = 8, a bootstrap's A = 32 and
                   S = 16 × 8 through torch.func.vmap, beside the four
-                  passes it replaces and its empty-kernel floor);
+                  passes it replaces and its empty-kernel floor; K4 at
+                  N = 288 and 256 and S = 16 × 288 through vmap, beside
+                  the torch.func passes it replaces and its floor, and
+                  checked with all weights 0 and with 3 inliers);
   4. parity     — a 16-frame VO slice on the card vs the port's CPU path;
   5. slice      — the 256-frame corridor VO slice at the bench operating
                   point: frames/s, K1 and K2 launches per run, ATE;
@@ -152,7 +156,9 @@ device, and imports nothing of JAX. Phases:
                   (tilted floor), VO run_sequence, run_slam_batched at
                   S=4, OnlineSlam.process against its fused_fn, then
                   process_chunk and a resumed run (K3 once per
-                  replayed step and once per bootstrap). Per program: K1/K2
+                  replayed step and once per bootstrap, K4 once per
+                  replayed step of the EKF drivers and none for VO's
+                  run_sequence). Per program: K1/K2
                   on the kernels' device counters; the driver's steps
                   profiled, with K1 and K2 found by name as often as the
                   counters ran them in that window, the host-issued
@@ -172,7 +178,8 @@ device, and imports nothing of JAX. Phases:
                   same generator seed), the cold find_keyframes_vo of
                   phase 18's example. Per case: K1/K2 on the device
                   counters (0 per LM iteration, one K2 per keyframe, one
-                  K1 and one K2 per pair); host ms, host-issued launches,
+                  K1 and one K2 per pair, and K4 once per mined pair);
+                  host ms, host-issued launches,
                   device busy and idle share per step, graphed and eager;
                   capture seconds and pools; launches within their limits;
  26. frontend-graphs — extract_features_sift (exact and fast) and
@@ -520,6 +527,18 @@ K3_TOL = 1e-5
 # rest of the undistortion ~110, the rotations and angles ~150, the
 # camera Jacobian's four columns ~200 (each atan2 counted as 1).
 K3_FLOPS = 1100
+# K4 agreement (phase 3), max |kernel − plain| over max |plain|: against
+# the plain version in float64 on the same inputs (K4 computes in float64;
+# tests/test_torch_vo_covariance_card.py). The gap to the plain version in
+# float32 is printed beside that version's own gap to float64, which on
+# an H100 read up to 1.02e-5 on one of 16 well-spread fits, and on the
+# CPU up to ~3e-4 on fits of 3 inliers.
+K4_TOL_F64 = 1e-6
+# K4's f64 flops per point pair, counted from csrc/vo_covariance.cu: R·p2,
+# the residual and p1 − t ~25, A's 10 sums ~60, the two point covariances
+# ~60, V = [I; [p1 − t]×] R ~45, the two sandwiches U S Uᵀ (21 entries)
+# ~510; the block's 6×6 inverse and products (~1000 once) left out.
+K4_FLOPS = 700
 
 # Phase 28: probe-timed step replays against CUDA events around them
 # (a relative and an absolute tolerance: either holds), and the stages'
@@ -535,6 +554,7 @@ GRAPH_CALLS, GRAPH_REPLAYS, GRAPH_READINGS = 20, 10, 5
 H100_BYTES_PER_S = 3.35e12
 H100_TF32_FLOPS = 495e12
 H100_F32_FLOPS = 67e12
+H100_F64_FLOPS = 34e12
 H100_BF16_FLOPS = 989e12
 
 
@@ -680,6 +700,14 @@ def k3_bound(a: int, s: int = 1):
     (6 + 78 + 12 + 6 floats) out, and each sequence's camera."""
     return bound_ms(K3_FLOPS * s * a, H100_F32_FLOPS,
                     s * (a * 4 * (3 + 102) + 4 * 13))
+
+
+def k4_bound(n: int, s: int = 1):
+    """K4: K4_FLOPS f64 flops per point pair outside the tensor cores;
+    bytes: each pair's two points and weight in, each sequence's R, t and
+    its [6, 6] covariance out."""
+    return bound_ms(K4_FLOPS * s * n, H100_F64_FLOPS,
+                    s * (n * 4 * 7 + 4 * (12 + 36)))
 
 
 def floor_fn(launch, *sizes):
@@ -920,6 +948,93 @@ def check_k3():
         t["bound_ms"], t["bound_by"] = k3_bound(a, s)
         timings[name] = t
         phase("kernel", f"K3 time {name}: graph replay bitwise equal to "
+              f"eager; device {t['device_ms']:.5f} ms (empty-kernel floor "
+              f"{t['launch_floor_ms']:.5f}), plain {t['plain_ms']:.5f}, "
+              f"library none, wrapper (host) {t['wrapper_ms']:.5f}; bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['device_ms']:.2%} of it")
+    return max_gap, timings
+
+
+def cov_problem(s: int, n: int, seed: int, n_inliers: int | None = None):
+    """K4's inputs (r, t, p1, p2, w) on the card: a fit rotated by
+    0.05 rad about a random axis with a few cm of translation, N points
+    1–4 m in front of the camera with 5 mm of noise, ~70% inliers (or the
+    first ``n_inliers``); a leading sequence axis when s > 1."""
+    from pre3_tpu_torch.data.synthetic import _rodrigues
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(s):
+        axis = rng.normal(size=3)
+        r = _rodrigues(0.05 * axis / np.linalg.norm(axis))
+        t = rng.normal(scale=0.05, size=3)
+        p2 = np.c_[rng.uniform(-1.5, 1.5, (n, 2)), rng.uniform(1.0, 4.0, n)]
+        p1 = p2 @ r.T + t + rng.normal(scale=0.005, size=(n, 3))
+        w = (rng.uniform(size=n) < 0.7).astype(np.float64)
+        if n_inliers is not None:
+            w = (np.arange(n) < n_inliers).astype(np.float64)
+        rows.append((r, t, p1, p2, w))
+    return [torch.as_tensor(np.stack(x) if s > 1 else x[0],
+                            dtype=torch.float32, device="cuda")
+            for x in zip(*rows)]
+
+
+def check_k4():
+    """K4 vs the plain torch.func version in float64 on the same inputs
+    (K4_TOL_F64; the float32 gap printed), at the main path's shapes (the
+    SIFT step's N = 288, FAST's N = 256, run_slam_batched's S = 16 × 288
+    through torch.func.vmap, one launch each) and at two degenerate ones
+    (all weights 0, 3 inliers), graph replay bitwise equal to the eager call;
+    timings at the main path's shapes beside the plain version (vmapped
+    at S = 16) and the empty-kernel floor. Returns the largest gap to the
+    float64 plain version, and the timings."""
+    from pre3_tpu_torch.ops.vo_covariance import _lib, vo_covariance
+    from pre3_tpu_torch.vo.covariance import vo_covariance_torch
+
+    def gap(got, ref):
+        scale = float(ref.abs().max())
+        return float((got.double() - ref.double()).abs().max()) / (
+            scale if scale else 1.0)
+
+    vmapped = torch.func.vmap
+    shapes = (("288", 1, 288, None), ("256", 1, 256, None),
+              ("16x288", 16, 288, None), ("288 weights 0", 1, 288, 0),
+              ("288 3 inliers", 1, 288, 3))
+    max_gap, timings = 0.0, {}
+    for name, s, n, n_in in shapes:
+        args = cov_problem(s, n, 50 + n + s, n_in)
+        kernel = vmapped(vo_covariance) if s > 1 else vo_covariance
+        plain = vmapped(vo_covariance_torch) if s > 1 else vo_covariance_torch
+        vo_covariance.launches = 0
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        launches = vo_covariance.launches
+        ref = plain(*args)
+        ref64 = plain(*(x.double() for x in args))
+        gap32, gap64 = gap(got, ref), gap(got, ref64)
+        max_gap = max(max_gap, gap64)
+        phase("kernel", f"K4 {name}: one launch {launches == 1}, gap "
+              f"{gap64:.3e} to the plain version in f64 (tolerance "
+              f"{K4_TOL_F64}), {gap32:.3e} to it in f32, whose own gap to "
+              f"f64 is {gap(ref, ref64):.3e}; max |plain| "
+              f"{float(ref.abs().max()):.3e}")
+        if launches != 1 or gap64 > K4_TOL_F64:
+            raise AssertionError(f"K4 {name}: {launches} launches, gap "
+                                 f"{gap64:.3e} to the f64 plain version")
+        if not replay_equals_eager(lambda: (kernel(*args),)):
+            raise AssertionError(f"K4 {name}: graph replay differs from "
+                                 f"the eager call")
+        if n_in is not None:
+            continue
+        t = dict(device_ms=device_ms(lambda: kernel(*args)),
+                 plain_ms=device_ms(lambda: plain(*args)), library_ms=None,
+                 wrapper_ms=wrapper_ms(lambda: kernel(*args)),
+                 launch_floor_ms=device_ms(floor_fn(
+                     _lib().vo_covariance_floor_launch, s)))
+        t["bound_ms"], t["bound_by"] = k4_bound(n, s)
+        timings[name] = t
+        phase("kernel", f"K4 time {name}: graph replay bitwise equal to "
               f"eager; device {t['device_ms']:.5f} ms (empty-kernel floor "
               f"{t['launch_floor_ms']:.5f}), plain {t['plain_ms']:.5f}, "
               f"library none, wrapper (host) {t['wrapper_ms']:.5f}; bound "
@@ -2007,10 +2122,12 @@ def reset_launches():
     from pre3_tpu_torch.ops.inverse_depth_init import inverse_depth_init
     from pre3_tpu_torch.ops.matching import match_descriptors_k2
     from pre3_tpu_torch.ops.ransac_score import score_hypotheses
+    from pre3_tpu_torch.ops.vo_covariance import vo_covariance
 
     score_hypotheses.launches = 0
     match_descriptors_k2.launches = 0
     inverse_depth_init.launches = 0
+    vo_covariance.launches = 0
 
 
 def read_launches() -> tuple[int, int]:
@@ -2025,6 +2142,13 @@ def read_k3() -> int:
     from pre3_tpu_torch.ops.inverse_depth_init import inverse_depth_init
 
     return inverse_depth_init.launches
+
+
+def read_k4() -> int:
+    """K4's runs on its device counter since ``reset_launches``."""
+    from pre3_tpu_torch.ops.vo_covariance import vo_covariance
+
+    return vo_covariance.launches
 
 
 def max_ulp(a: np.ndarray, b: np.ndarray) -> int:
@@ -3349,11 +3473,12 @@ def host_seconds(fn) -> float:
 
 
 def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
-                     k2_per_step, k3=0, limit=GRAPH_LAUNCHES_RUN_SLAM):
+                     k2_per_step, k3=0, k4=0, limit=GRAPH_LAUNCHES_RUN_SLAM):
     """One driver: ``run()`` graphed (its first call captures), again
     under sync checks (replays only) and against ``eager()``; K1/K2 on
-    the kernels' device counters, and K3's against ``k3`` (one per step
-    and one per bootstrap the call runs); host ms per step of the whole call
+    the kernels' device counters, K3's against ``k3`` (one per step
+    and one per bootstrap the call runs) and K4's against ``k4`` (one per
+    step that runs VO with its covariance); host ms per step of the whole call
     and of ``stepper()`` alone (the steps after the driver's
     bootstrap), medians of 3; ``stepper()`` profiled for the host-issued
     launches per step, device busy per step and the idle share of that
@@ -3371,7 +3496,7 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     k1, k2 = read_launches()
-    k3_runs = read_k3()
+    k3_runs, k4_runs = read_k3(), read_k4()
     t_run = statistics.median([t_run] + [host_seconds(run) for _ in range(2)])
     t_steps = statistics.median([host_seconds(stepper) for _ in range(3)])
     torch.cuda.synchronize()
@@ -3386,6 +3511,7 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
     equal, gap = tree_gap(got, ref)
     launches, busy, wall, names, counted = profiled_launches(stepper)
     res = dict(name=name, equal=equal, gap=gap, k1=k1, k2=k2, k3=k3_runs,
+               k4=k4_runs,
                launches=launches / steps, busy_ms=busy / steps,
                host_ms=1e3 * t_run / steps, steps_ms=1e3 * t_steps / steps,
                eager_host_ms=1e3 * t_eager / steps, idle=1.0 - busy / wall,
@@ -3393,7 +3519,8 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
                names=names, first_s=t_first, captures=caps,
                peak_mib=graphed_peak, eager_peak_mib=eager_peak)
     phase("graphs", f"{name}: graphed vs eager bit-equal {equal} (max gap "
-          f"{gap:.3e}); K1 {k1}, K2 {k2}, K3 {k3_runs} (want {k3}) over "
+          f"{gap:.3e}); K1 {k1}, K2 {k2}, K3 {k3_runs} (want {k3}), K4 "
+          f"{k4_runs} (want {k4}) over "
           f"{steps} steps (device counters); host {res['host_ms']:.3f} ms per step for the whole "
           f"call, {res['fps']:.2f} frames/s (eager {res['eager_host_ms']:.3f}"
           f" ms, {res['eager_fps']:.2f} frames/s), the steps alone "
@@ -3413,10 +3540,11 @@ def graphed_vs_eager(name, run, eager, stepper, steps, k1_per_step,
     # kernels by name
     want = {K1_KERNEL: k1_per_step * steps, K2_KERNEL: k2_per_step * steps}
     if (k1, k2) != tuple(want.values()) or counted != want or not all(
-            names.values()) or k3_runs != k3:
+            names.values()) or (k3_runs, k4_runs) != (k3, k4):
         raise AssertionError(f"graphs {name}: K1 {k1}, K2 {k2}, K3 {k3_runs}"
-                             f" over {steps} steps; profiled {names}, counted "
-                             f"{counted}, want {want} and K3 {k3}")
+                             f", K4 {k4_runs} over {steps} steps; profiled "
+                             f"{names}, counted {counted}, want {want}, K3 "
+                             f"{k3} and K4 {k4}")
     if res["launches"] > limit:
         raise AssertionError(f"graphs {name}: {res['launches']:.2f} launches "
                              f"per step (limit {limit})")
@@ -3575,7 +3703,7 @@ def online_graphs(images, cam):
     wall = 1e3 * (time.perf_counter() - t_loop) / (n - 2)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
     k1, k2 = read_launches()
-    k3 = read_k3()
+    k3, k4 = read_k3(), read_k4()
     ref = eager()
     got = [(r.t, r.q) if r.stats is None else (r.t, r.q, r.stats)
            for r in slam2.results]
@@ -3594,7 +3722,7 @@ def online_graphs(images, cam):
     phase("graphs", f"OnlineSlam.process (SIFT, K={k}), {n} frames: "
           f"graphed vs its fused_fn eagerly bit-equal {equal} (max gap "
           f"{gap:.3e}), two instances equal {same}; K1 {k1}, K2 {k2}, K3 "
-          f"{k3}; "
+          f"{k3}, K4 {k4}; "
           f"process() returns in {med:.3f} ms (median, no host sync), "
           f"{wall:.3f} ms per frame over frames 2–{n - 1} with the closing "
           f"synchronize ({1e3 / wall:.1f} frames/s); {GRAPH_PROFILED_FRAMES} "
@@ -3605,9 +3733,10 @@ def online_graphs(images, cam):
           f"{peak:.1f} MiB above the state; first frame after the bootstrap "
           f"{first:.2f} s; " + "; ".join(caps))
     # frames 1..n−1: the first of them captures (its warm-up uncounted)
-    if not (equal and same) or (k1, k2, k3) != (n - 1, 2 * (n - 1), n - 1):
+    if not (equal and same) or (k1, k2, k3, k4) != (
+            n - 1, 2 * (n - 1), n - 1, n - 1):
         raise AssertionError("graphs: OnlineSlam.process differs from its "
-                             "eager frames or from its K1/K2/K3 counts")
+                             "eager frames or from its K1/K2/K3/K4 counts")
     want = {K1_KERNEL: GRAPH_PROFILED_FRAMES,
             K2_KERNEL: 2 * GRAPH_PROFILED_FRAMES}
     if launches > GRAPH_LAUNCHES_FRAME or counted != want or not all(
@@ -3721,9 +3850,10 @@ def graphs_phase(images, im):
             cam, state0, first, rest, idx, cfg, generator=gen(),
             xyz_imgs=None if xyz is None else xyz[1:], first_step=1,
             images=None if images_ is None else images_[1:])
-        # K3: one per step and one for the bootstrap
+        # K3: one per step and one for the bootstrap; K4: one per step
+        # (the bootstrap runs no VO)
         results[name] = graphed_vs_eager(name, run, eager, stepper, steps, 1,
-                                         k2, k3=steps + 1)
+                                         k2, k3=steps + 1, k4=steps)
 
     slam_case("run_slam #3 (SIFT, K=256)", sift, SlamConfig(**SIFT_CFG),
               SIFT_LANDMARKS)
@@ -3756,7 +3886,8 @@ def graphs_phase(images, im):
         lambda: eager_batched(cam, bfeats, bcfg, SIFT_LANDMARKS, bgens())[0],
         lambda: scan_steps_batched(cam, bstate, bfeats, bcfg, SIFT_LANDMARKS,
                                    generators=bgens()),
-        steps, 1, 2, k3=steps + s, limit=GRAPH_LAUNCHES_RUN_SLAM + s)
+        steps, 1, 2, k3=steps + s, k4=steps,
+        limit=GRAPH_LAUNCHES_RUN_SLAM + s)
     _, rows = eager_batched(cam, Features(*(x[:, :4] for x in bfeats)), bcfg,
                             SIFT_LANDMARKS, bgens())
     kept = retained_per_step([r[-1] for r in rows])
@@ -3887,12 +4018,14 @@ def as_tensors(tree):
 
 def backend_case(name, run, eager, steps: int, unit: str, want, limit,
                  verdict: int = 0, where: str = "backend-graphs",
-                 sync_check: bool = False, eager_steps=(1, 2), k3: int = 0):
+                 sync_check: bool = False, eager_steps=(1, 2), k3: int = 0,
+                 k4: int = 0):
     """One program of config #4: ``run()`` (through the program; a first
     call captures any variant not captured yet) against ``eager(steps)``,
     the plain loop of its body, on the same inputs and draws, bit for bit.
     K1/K2 on the device counters of the graphed and the eager runs
-    against ``want``, K3's against ``k3`` (one per bootstrap); host ms per step of each (medians of 3 and of 1);
+    against ``want``, K3's against ``k3`` (one per bootstrap), K4's
+    against ``k4`` (one per loop-mining pair); host ms per step of each (medians of 3 and of 1);
     the graphed run profiled for host-issued launches per step (less
     ``verdict`` host reads per step), device busy per step and idle
     share, and the eager loop profiled over ``eager_steps`` (1 and 2)
@@ -3907,7 +4040,8 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
     from pre3_tpu_torch.utils.profile_slice import _profiled
 
     def counted_run(fn, check=False):
-        """(fn's result, host seconds, K1/K2/K3 on the device counters)."""
+        """(fn's result, host seconds, K1/K2/K3/K4 on the device
+        counters)."""
         reset_launches()
         torch.cuda.synchronize()
         if check:
@@ -3918,7 +4052,8 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, (*read_launches(), read_k3())
+        return out, time.perf_counter() - t0, (*read_launches(), read_k3(),
+                                               read_k4())
 
     t_case = time.perf_counter()
     before = captured_now()
@@ -3935,7 +4070,7 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
         for n in eager_steps)
     equal, gap = tree_gap(as_tensors(got), as_tensors(ref))
     res = dict(name=name, equal=equal, gap=gap, k1=counts[0], k2=counts[1],
-               k3=counts[2],
+               k3=counts[2], k4=counts[3],
                launches=launches / steps - verdict, busy_ms=busy / steps,
                host_ms=1e3 * t_graph / steps, idle=1.0 - busy / wall,
                eager_host_ms=1e3 * t_eager / steps,
@@ -3955,17 +4090,18 @@ def backend_case(name, run, eager, steps: int, unit: str, want, limit,
           f"{verdict} "
           f"verdict read per {unit}; whole call graphed {1e3 * t_graph:.2f} "
           f"ms, eager {1e3 * t_eager:.2f} ms, first call {t_first:.2f} s; "
-          f"K1/K2/K3 graphed {counts}, eager {eager_counts}, profiled {names}"
-          f" against the counters {counted}, want {(*want, k3)}; case "
+          f"K1/K2/K3/K4 graphed {counts}, eager {eager_counts}, profiled "
+          f"{names} against the counters {counted}, want {(*want, k3, k4)}; "
+          f"case "
           f"{res['case_s']:.1f} s; " + "; ".join(caps))
     if not equal:
         raise AssertionError(f"{where} {name}: graphed and eager "
                              f"differ (max gap {gap:.3e})")
     want_names = dict(zip((K1_KERNEL, K2_KERNEL), want))
-    want = (*want, k3)
+    want = (*want, k3, k4)
     if counts != want or eager_counts != want or counted != want_names or (
             any(names[k] == 0 for k, v in want_names.items() if v)):
-        raise AssertionError(f"{where} {name}: K1/K2/K3 {counts} "
+        raise AssertionError(f"{where} {name}: K1/K2/K3/K4 {counts} "
                              f"(eager {eager_counts}, profiled {names}, "
                              f"counted {counted}), want {want}")
     if res["launches"] > limit:
@@ -4019,7 +4155,8 @@ def backend_graphs_phase(prob15, loop, offline_feats):
             kf_feats, kf_t, kf_q, kf_valid, max_pairs=MINE_MAX_PAIRS,
             generator=gen(1)),
         lambda n: eager_mine(kf_feats, kf_t, kf_valid, gen(1), n)[0],
-        tried, "pair", (tried, tried), BACKEND_LAUNCHES_STEP, verdict=1)
+        tried, "pair", (tried, tried), BACKEND_LAUNCHES_STEP, verdict=1,
+        k4=tried)
     n = offline_feats.uv.shape[0] - 1
     results["keyframes"] = backend_case(
         f"find_keyframes_vo (cold, {n + 1} frames, {n} pairs)",
@@ -4376,12 +4513,14 @@ def main() -> None:
 
     # ---- 2. build ----
     timed("build", build_kernels,
-          ["ransac_score", "match_stream", "inverse_depth_init"])
+          ["ransac_score", "match_stream", "inverse_depth_init",
+           "vo_covariance"])
 
     # ---- 3. kernels vs plain on the card ----
     k1_err, k1_times = timed("kernel K1", check_k1)
     k2_err, k2_times = timed("kernel K2", check_k2)
     k3_gap, k3_times = timed("kernel K3", check_k3)
+    k4_gap, k4_times = timed("kernel K4", check_k4)
 
     # ---- 4./5. VO slice ----
     images, im, gt = timed("parity + slice (VO)", vo_phases)
@@ -4533,9 +4672,20 @@ def main() -> None:
          **k3_times["8"],
          "bootstrap_time": {"shape": "A=32", **k3_times["32"]},
          "batched_time": {"shape": "S=16, A=8", **k3_times["16x8"]}},
+        {"name": "vo_covariance", "route": "cuda",
+         "source": "pre3_tpu_torch/csrc/vo_covariance.cu",
+         "replaces": "none (vo_covariance's hessian and two jacfwd-of-grad "
+                     "passes, pre3_tpu/vo/covariance.py)",
+         "shape": "N=288 (a SIFT step)",
+         "launches": graph_res["run_slam #3 (SIFT, K=256)"]["k4"],
+         "max_rel_gap_f64": k4_gap, "ms": k4_times["288"]["device_ms"],
+         **k4_times["288"],
+         "fast_time": {"shape": "N=256", **k4_times["256"]},
+         "batched_time": {"shape": "S=16, N=288", **k4_times["16x288"]}},
     ], "pnp_icp_card_vs_cpu": pnp_err,
         "graphs": {k: {f: v[f] for f in ("launches", "host_ms", "busy_ms",
-                                        "idle", "k1", "k2", "k3") if f in v}
+                                        "idle", "k1", "k2", "k3", "k4")
+                    if f in v}
                    for k, v in graph_res.items() if k != "memory"},
         "graph_memory": {k: graph_res["memory"][k]
                          for k in ("growth", "eager_growth", "frontend")},

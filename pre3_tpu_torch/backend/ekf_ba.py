@@ -21,7 +21,7 @@ from pre3_tpu_torch.backend.loop_detect import _numpy, sqrt_information
 from pre3_tpu_torch.geometry.quaternion import (
     qconj, qnormalize, qprod, qrotate, r2q,
 )
-from pre3_tpu_torch.vo.covariance import vo_covariance
+from pre3_tpu_torch.ops.vo_covariance import vo_covariance
 from pre3_tpu_torch.vo.rigid import kabsch
 
 

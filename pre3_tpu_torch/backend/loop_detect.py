@@ -29,10 +29,10 @@ import torch
 from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.quaternion import r2q
 from pre3_tpu_torch.ops.matching import match_descriptors_auto
+from pre3_tpu_torch.ops.vo_covariance import vo_covariance
 from pre3_tpu_torch.utils.graphs import (
     STAGE_ROWS, Packing, StepProgram, program, shape_key,
 )
-from pre3_tpu_torch.vo.covariance import vo_covariance
 from pre3_tpu_torch.vo.ransac import ransac_rigid
 
 # conservative noise floor added to every factor covariance so the

@@ -8,7 +8,11 @@ Port of ``pre3_tpu/vo/covariance.py``: the implicit-function-theorem form
 with the SR4000 sensor noise model in spherical coordinates (range σ_r =
 1 cm, angular σ_a = 0.24°). θ is the 6-vector [dt, dω] perturbation of
 the fitted (R, t); Σ_θ is the covariance of the VO increment that feeds
-the EKF prediction. The derivatives come from ``torch.func``.
+the EKF prediction.
+
+``vo_covariance_torch`` takes the derivatives from ``torch.func``: the
+CPU path and the oracle of ``ops/vo_covariance.py``, whose
+``vo_covariance`` is the entry point (kernel K4 on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from pre3_tpu_torch.geometry.quaternion import qrotate, v2q
 
 SIGMA_RANGE = 0.01  # m
 SIGMA_ANG = float(np.float32(0.24 * math.pi / 180.0))  # rad, f32 as the reference
+DAMPING = 1e-6  # the ridge on A (rank-deficient with too few inliers)
 
 
 def sr4000_point_covariance(p: torch.Tensor) -> torch.Tensor:
@@ -47,14 +52,15 @@ def _cost(theta, r, t, p1, p2, w):
     return torch.sum(0.5 * w * torch.sum(resid * resid, dim=-1))
 
 
-def vo_covariance(
+def vo_covariance_torch(
     r: torch.Tensor,  # [3, 3] fitted rotation
     t: torch.Tensor,  # [3] fitted translation
     p1: torch.Tensor,  # [N, 3] frame-1 points
     p2: torch.Tensor,  # [N, 3] frame-2 points
     w: torch.Tensor,  # [N] inlier weights
 ) -> torch.Tensor:
-    """[6, 6] covariance of the VO increment [dt, dω]."""
+    """[6, 6] covariance of the VO increment [dt, dω], the derivatives
+    by ``torch.func``."""
     zero = torch.zeros(6, dtype=p1.dtype, device=p1.device)
     a = hessian(_cost, argnums=0)(zero, r, t, p1, p2, w)  # [6, 6]
     # B_i = ∂²E/∂θ∂p1_i and ∂²E/∂θ∂p2_i as Jacobians of the gradient
@@ -68,7 +74,7 @@ def vo_covariance(
            + torch.einsum("anj,njk,bnk->ab", b2, s2, b2))
     # damped inverse of A (rank-deficient when too few inliers); the _ex
     # form leaves the singularity flag on the card instead of syncing
-    a_reg = a + 1e-6 * torch.eye(6, dtype=a.dtype, device=a.device)
+    a_reg = a + DAMPING * torch.eye(6, dtype=a.dtype, device=a.device)
     a_inv, _ = torch.linalg.inv_ex(a_reg)
     cov = a_inv @ mid @ a_inv.T
     return 0.5 * (cov + cov.T)

@@ -19,11 +19,11 @@ from pre3_tpu_torch.frontend.pipeline import Features
 from pre3_tpu_torch.geometry.quaternion import qnormalize, qprod, qrotate, r2q
 from pre3_tpu_torch.geometry.se3 import Pose
 from pre3_tpu_torch.ops.matching import match_descriptors_auto
+from pre3_tpu_torch.ops.vo_covariance import vo_covariance
 from pre3_tpu_torch.utils.graphs import (
     STAGE_ROWS, Packing, StepProgram, empty_like_tree, load, program,
     shape_key,
 )
-from pre3_tpu_torch.vo.covariance import vo_covariance
 from pre3_tpu_torch.vo.ransac import ransac_rigid
 
 
@@ -52,7 +52,8 @@ def vo_pair(
     camera 2 expressed in camera 1. ``gumbel`` [batch, K] or ``generator``
     supplies RANSAC's sampling noise (see vo/ransac.py). With
     ``with_covariance``, ``cov`` is the IFT covariance of the increment
-    (vo/covariance.py), the EKF's process noise; otherwise zeros.
+    (ops/vo_covariance.py: kernel K4 on the card), the EKF's process
+    noise; otherwise zeros.
     """
     m = match_descriptors_auto(
         f1.desc, f2.desc, valid1=f1.valid, valid2=f2.valid, ratio=ratio

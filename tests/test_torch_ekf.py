@@ -42,8 +42,8 @@ from pre3_tpu_torch.ekf.state import EkfState, init_state as tinit_state
 from pre3_tpu_torch.geometry import camera as tcamera
 from pre3_tpu_torch.geometry import inverse_depth as tid
 from pre3_tpu_torch.ops.small_chol import chol_solve_unrolled as tchol
+from pre3_tpu_torch.ops.vo_covariance import vo_covariance as tcov
 from pre3_tpu_torch.utils.interop import to_numpy, to_torch
-from pre3_tpu_torch.vo.covariance import vo_covariance as tcov
 
 JCAM = jcamera.sr4000_camera()
 TCAM = tcamera.sr4000_camera()
