@@ -818,7 +818,7 @@ def check_k1():
     (512, 96) and its RANSAC stage's (64, 64) and (32, 64)) and the corner
     cases; timings at the same shapes."""
     from pre3_tpu_torch.ops.ransac_score import (
-        _lib, score_hypotheses, score_hypotheses_torch,
+        K1, score_hypotheses, score_hypotheses_torch,
     )
 
     cases = [  # (name, B, N, seed, all_invalid)
@@ -863,7 +863,7 @@ def check_k1():
                  library_ms=None,
                  wrapper_ms=wrapper_ms(lambda: score_hypotheses(*args)),
                  launch_floor_ms=device_ms(floor_fn(
-                     _lib().ransac_score_floor_launch, 1, b)))
+                     K1.lib().ransac_score_floor_launch, 1, b)))
         t["bound_ms"], t["bound_by"] = k1_bound(b, n)
         timings[name] = t
         phase("kernel", f"K1 time B×N={name}: device {t['device_ms']:.5f} ms "
@@ -914,7 +914,7 @@ def check_k3():
     four passes it replaces; vmapped at S = 16) and the empty-kernel
     floor."""
     from pre3_tpu_torch.ops.inverse_depth_init import (
-        _lib, inverse_depth_init, inverse_depth_init_torch,
+        K3, inverse_depth_init, inverse_depth_init_torch,
     )
 
     vmapped = lambda f, cam: torch.func.vmap(  # noqa: E731
@@ -944,7 +944,7 @@ def check_k3():
                  plain_ms=device_ms(lambda: plain(*args)), library_ms=None,
                  wrapper_ms=wrapper_ms(lambda: kernel(*args)),
                  launch_floor_ms=device_ms(floor_fn(
-                     _lib().inverse_depth_init_floor_launch, s, a)))
+                     K3.lib().inverse_depth_init_floor_launch, s, a)))
         t["bound_ms"], t["bound_by"] = k3_bound(a, s)
         timings[name] = t
         phase("kernel", f"K3 time {name}: graph replay bitwise equal to "
@@ -989,7 +989,7 @@ def check_k4():
     timings at the main path's shapes beside the plain version (vmapped
     at S = 16) and the empty-kernel floor. Returns the largest gap to the
     float64 plain version, and the timings."""
-    from pre3_tpu_torch.ops.vo_covariance import _lib, vo_covariance
+    from pre3_tpu_torch.ops.vo_covariance import K4, vo_covariance
     from pre3_tpu_torch.vo.covariance import vo_covariance_torch
 
     def gap(got, ref):
@@ -1031,7 +1031,7 @@ def check_k4():
                  plain_ms=device_ms(lambda: plain(*args)), library_ms=None,
                  wrapper_ms=wrapper_ms(lambda: kernel(*args)),
                  launch_floor_ms=device_ms(floor_fn(
-                     _lib().vo_covariance_floor_launch, s)))
+                     K4.lib().vo_covariance_floor_launch, s)))
         t["bound_ms"], t["bound_by"] = k4_bound(n, s)
         timings[name] = t
         phase("kernel", f"K4 time {name}: graph replay bitwise equal to "
@@ -1086,7 +1086,7 @@ def check_k2():
     128²×121 and 64×128×121, the dry run's FAST 96²×121 and 24×96×121)
     and at 4096² and 8192², which no path of the repo reaches."""
     from pre3_tpu_torch.ops.matching import (
-        BIG, K2_RANKS, _best_two, _launch_k2, _lib, _pairwise_dist2,
+        BIG, K2, K2_RANKS, _best_two, _launch_k2, _pairwise_dist2,
         match_descriptors, match_descriptors_k2,
     )
 
@@ -1233,7 +1233,7 @@ def check_k2():
             wrapper_ms=wrapper_ms(
                 lambda: match_descriptors_k2(d1, d2, v1, v2, ratio=1.3)),
             launch_floor_ms=device_ms(floor_fn(
-                _lib().match_stream_floor_launch, 1, n1, n2, d)))
+                K2.lib().match_stream_floor_launch, 1, n1, n2, d)))
         t["bound_ms"], t["bound_by"] = k2_bound(n1, n2, d)
         timings[name] = t
         phase("kernel", f"K2 time {name}: device {t['device_ms']:.5f} ms "
@@ -2864,7 +2864,7 @@ def batch_kernels():
            lambda: [_launch(*prob) for prob in probs],
            lambda: vmap(score_hypotheses_torch)(*args), None,
            lambda: vmap(score_hypotheses)(*args),
-           floor_fn(ransac_score._lib().ransac_score_floor_launch,
+           floor_fn(ransac_score.K1.lib().ransac_score_floor_launch,
                     n_seq, b), k1_bound(b, n, n_seq))
 
     # K2
@@ -2906,7 +2906,7 @@ def batch_kernels():
                lambda: torch.bmm(d1, d2.transpose(1, 2)),
                lambda: vmap(lambda a, c, e, f: match_descriptors_k2(
                    a, c, e, f, ratio=1.3))(d1, d2, v1, v2),
-               floor_fn(matching._lib().match_stream_floor_launch,
+               floor_fn(matching.K2.lib().match_stream_floor_launch,
                         n_seq, n1, n2, d), k2_bound(n1, n2, d, n_seq))
     return errs, times
 

@@ -16,12 +16,9 @@ smallest distances, and the ratio test (accept when best·ratio < second).
                          unmasked match, the plain version with a
                          ``pair_mask``.
 
-K2's wrapper goes through the custom op ``pre3_tpu_torch::match_stream``,
-so ``torch.func.vmap`` can reach the kernel: the op's vmap rule moves the
-batch axis to the front, expands the unbatched arguments (a shared d2,
-say) and calls the op again with that leading sequence axis, ONE launch
-of K2 on the card (on the CPU, the plain version per sequence). The op
-takes one sequence axis at most, so nested vmap raises.
+CUDA tensors go through the custom op ``pre3_tpu_torch::match_stream``,
+whose vmap rule makes one launch of K2 for S sequences, a shared d2
+expanded (``ops/kernel_op.py``, which K1–K4 share).
 """
 
 from __future__ import annotations
@@ -31,9 +28,8 @@ from typing import NamedTuple
 
 import torch
 
-from pre3_tpu_torch.utils.cuda_build import load_library
+from pre3_tpu_torch.ops.kernel_op import HandKernel
 from pre3_tpu_torch.utils.launch_count import Counted
-from pre3_tpu_torch.utils.vmap_ops import check_not_batched, to_front
 
 BIG = 1e30
 K2_MAX_DIM = 256  # widest rows K2 stages in shared memory (kMaxD)
@@ -105,34 +101,14 @@ def match_descriptors(
                    accepted=accepted)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("match_stream")
-    fn = lib.match_stream_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
-        floor = lib.match_stream_floor_launch
-        floor.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        floor.restype = ctypes.c_int
-    return lib
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if x.dtype != dtype or tuple(x.shape) != shape or x.device != device or (
-        not x.is_contiguous()
-    ):
-        raise ValueError(
-            f"match_descriptors_k2: {name} must be a contiguous {dtype} "
-            f"tensor of shape {shape} on {device}; got {x.dtype} "
-            f"{tuple(x.shape)} on {x.device}, contiguous={x.is_contiguous()}"
-        )
+K2 = HandKernel("match_stream", "match_descriptors_k2", arg="d1",
+                shape="N1, D", inputs=3, scalars=[ctypes.c_int] * 3,
+                outputs=3, floor=[ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _k2_sizes(d1: torch.Tensor, d2: torch.Tensor):
-    """(lead, N1, N2, D) of what K2 takes, lead () or (S,); raises on
-    any other shape."""
+    """(N1, N2, D) of what K2 takes, with or without a leading sequence
+    axis; raises on any other shape."""
     if d1.dim() not in (2, 3) or d2.dim() != d1.dim() or (
         d1.shape[:-2] != d2.shape[:-2] or d1.shape[-1] != d2.shape[-1]
     ):
@@ -144,7 +120,7 @@ def _k2_sizes(d1: torch.Tensor, d2: torch.Tensor):
     if n2 < 1 or not 1 <= d <= K2_MAX_DIM:
         raise ValueError(f"match_descriptors_k2: needs N2 ≥ 1 and 1 ≤ D ≤ "
                          f"{K2_MAX_DIM}; got N2={n2}, D={d}")
-    return tuple(d1.shape[:-2]), n1, n2, d
+    return n1, n2, d
 
 
 def _launch_k2(d1: torch.Tensor, d2: torch.Tensor,
@@ -154,32 +130,17 @@ def _launch_k2(d1: torch.Tensor, d2: torch.Tensor,
     argument (d1 [S, N1, D], d2 [S, N2, D], valid2 [S, N2]), S problems
     in one batched launch. Raises on what the kernel does not take, on a
     vmapped tensor, and on a failed launch."""
-    check_not_batched("match_descriptors_k2", d1, d2, valid2)
-    lead, n1, n2, d = _k2_sizes(d1, d2)
-    device = d1.device
-    if device.type != "cuda":
-        raise ValueError(f"match_descriptors_k2: no kernel for device {device}")
-    _check("d1", d1, torch.float32, (*lead, n1, d), device)
-    _check("d2", d2, torch.float32, (*lead, n2, d), device)
+    lead = K2.lead(d1, d2, valid2)
+    (n1, n2, d), device = _k2_sizes(d1, d2), d1.device
+    K2.check("d1", d1, torch.float32, (*lead, n1, d), device)
+    K2.check("d2", d2, torch.float32, (*lead, n2, d), device)
     if valid2 is not None:
-        _check("valid2", valid2, torch.bool, (*lead, n2), device)
+        K2.check("valid2", valid2, torch.bool, (*lead, n2), device)
     idx = torch.empty((*lead, n1), dtype=torch.int64, device=device)
     best = torch.empty((*lead, n1), dtype=torch.float32, device=device)
     second = torch.empty((*lead, n1), dtype=torch.float32, device=device)
-    if n1 and 0 not in lead:
-        lib = _lib()
-        ptrs = (d1.data_ptr(), d2.data_ptr(),
-                0 if valid2 is None else valid2.data_ptr())
-        outs = (idx.data_ptr(), best.data_ptr(), second.data_ptr())
-        count = match_descriptors_k2.pointer(device)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            s = lead[0] if lead else 1
-            rc = lib.match_stream_launch(*ptrs, s, n1, n2, d, *outs, stream,
-                                         count)
-        if rc != 0:
-            raise RuntimeError(f"match_stream kernel launch failed: cudaError "
-                               f"{rc} (S={s}, N1={n1}, N2={n2}, D={d})")
+    K2.launch(match_descriptors_k2, lead, (d1, d2, valid2),
+              (idx, best, second), dict(N1=n1, N2=n2, D=d))
     return idx, best, second
 
 
@@ -188,41 +149,15 @@ def _plain_k2(d1, d2, valid2):
     return m.index, m.dist2, m.dist2_second
 
 
-def _run_k2(d1, d2, valid2):
-    """What the custom op computes: K2 on the card, one launch for one
-    problem (d1 [N1, D]) or for a leading sequence axis (d1 [S, N1, D]);
-    on the CPU the plain matcher's (index, best, second), per sequence
-    for a sequence axis. A second leading axis (nested vmap) raises."""
-    if d1.dim() > 3:
-        raise RuntimeError(
-            f"match_descriptors_k2: nested vmap is not supported; the kernel "
-            f"takes one sequence axis (d1 {tuple(d1.shape)})")
-    if d1.device.type != "cpu":
-        return _launch_k2(d1, d2, valid2)
-    if d1.dim() == 2:
-        return _plain_k2(d1, d2, valid2)
-    v2 = [None] * d1.shape[0] if valid2 is None else valid2
-    rows = [_plain_k2(*xs) for xs in zip(d1, d2, v2)]
-    return tuple(torch.stack(col) for col in zip(*rows))
-
-
-@torch.library.custom_op(
-    "pre3_tpu_torch::match_stream", mutates_args=(),
-    schema="(Tensor d1, Tensor d2, Tensor? valid2) -> (Tensor, Tensor, Tensor)")
-def _k2_op(d1, d2, valid2):
-    return _run_k2(d1, d2, valid2)
-
-
-@_k2_op.register_fake
 def _k2_fake(d1, d2, valid2):
     shape = d1.shape[:-1]
     return (d1.new_empty(shape, dtype=torch.int64), d1.new_empty(shape),
             d1.new_empty(shape))
 
 
-@_k2_op.register_vmap
-def _k2_vmap(info, in_dims, *args):
-    return _k2_op(*to_front(info.batch_size, in_dims, args)), (0, 0, 0)
+K2.define("pre3_tpu_torch::match_stream",
+          "(Tensor d1, Tensor d2, Tensor? valid2) -> (Tensor, Tensor, Tensor)",
+          _launch_k2, _plain_k2, _k2_fake)
 
 
 @Counted
@@ -244,13 +179,12 @@ def match_descriptors_k2(
     does each replay of a graph that holds one; ``utils/launch_count``)."""
     if d1.device.type != "cpu":
         _k2_sizes(d1, d2)  # shape errors first, before any device work
-        if d1.device.type != "cuda":
-            raise ValueError(f"match_descriptors_k2: no kernel for device "
-                             f"{d1.device}")
-    idx, best, second = _k2_op(d1, d2, valid2)
+    if K2.on_cpu(d1):
+        return match_descriptors(d1, d2, valid1=valid1, valid2=valid2,
+                                 ratio=ratio)
+    idx, best, second = K2.op(d1, d2, valid2)
     return Matches(index=idx, dist2=best, dist2_second=second,
                    accepted=_ratio_test(best, second, ratio, valid1))
-
 
 
 def match_descriptors_auto(

@@ -28,15 +28,12 @@ Jᵢ = [I₃, −[qᵢ]×] (the residual's derivative is −Jᵢ):
   mid  = Σ B1ᵢ S(p1ᵢ) B1ᵢᵀ + B2ᵢ S(p2ᵢ) B2ᵢᵀ  (S: ``sr4000_point_covariance``);
   cov  = sym((A + 1e-6 I)⁻¹ mid (A + 1e-6 I)⁻ᵀ).
 
-For CUDA tensors the wrapper goes through the custom op
-``pre3_tpu_torch::vo_covariance``, so ``torch.func.vmap``
-(``run_slam_batched``) reaches the kernel: the op's vmap rule moves the
-batch axis to the front and calls the op again with that leading sequence
-axis, ONE launch of K4. The op takes one sequence axis at most, so nested
-vmap raises. On the CPU the wrapper calls the plain version itself (under
-vmap, batched by vmap as the step always was), bit for bit what the port
-computed before K4: the op's CPU kernel runs below autograd, where
-``torch.func`` cannot run, so it computes the closed form instead.
+CUDA tensors go through the custom op ``pre3_tpu_torch::vo_covariance``,
+whose vmap rule makes one launch of K4 for S sequences
+(``run_slam_batched``; ``ops/kernel_op.py``, which K1–K4 share). CPU
+tensors go to the ``torch.func`` version, under vmap batched by vmap, bit
+for bit what the port computed before K4; the op's CPU kernel runs below
+autograd, where ``torch.func`` cannot run, so it computes the closed form.
 """
 
 from __future__ import annotations
@@ -46,9 +43,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from pre3_tpu_torch.utils.cuda_build import load_library
+from pre3_tpu_torch.ops.kernel_op import HandKernel
 from pre3_tpu_torch.utils.launch_count import Counted
-from pre3_tpu_torch.utils.vmap_ops import check_not_batched, to_front
 from pre3_tpu_torch.vo.covariance import (
     DAMPING, SIGMA_ANG, SIGMA_RANGE, sr4000_point_covariance,
     vo_covariance_torch,
@@ -102,28 +98,9 @@ def vo_covariance_closed_form(
     return (0.5 * (cov + cov.mT)).to(dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("vo_covariance")
-    fn = lib.vo_covariance_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
-            ctypes.c_double] * 3 + [ctypes.c_void_p] * 3
-        fn.restype = ctypes.c_int
-        floor = lib.vo_covariance_floor_launch
-        floor.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        floor.restype = ctypes.c_int
-    return lib
-
-
-def _check(name: str, x: torch.Tensor, shape: tuple,
-           device: torch.device) -> None:
-    if x.dtype != torch.float32 or tuple(x.shape) != shape or (
-        x.device != device or not x.is_contiguous()
-    ):
-        raise ValueError(
-            f"vo_covariance: {name} must be a contiguous float32 tensor of "
-            f"shape {shape} on {device}; got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device}, contiguous={x.is_contiguous()}")
+K4 = HandKernel("vo_covariance", "vo_covariance", arg="r", shape="3, 3",
+                inputs=5, scalars=[ctypes.c_int] + [ctypes.c_double] * 3,
+                outputs=1, floor=[ctypes.c_int, ctypes.c_void_p])
 
 
 def _launch(r, t, p1, p2, w):
@@ -131,70 +108,26 @@ def _launch(r, t, p1, p2, w):
     [N, 3], w [N]) or, with a leading sequence axis on every argument, S
     problems in one launch. Raises on what the kernel does not take, on a
     vmapped tensor, and on a failed launch."""
-    check_not_batched("vo_covariance", r, t, p1, p2, w)
-    device = p1.device
-    if device.type != "cuda":
-        raise ValueError(f"vo_covariance: no kernel for device {device}")
-    lead = tuple(p1.shape[:-2])  # () or (S,)
-    if len(lead) > 1 or p1.dim() < 2:
-        raise ValueError(f"vo_covariance: p1 must be [N, 3] or [S, N, 3]; "
-                         f"got {tuple(p1.shape)}")
-    n = p1.shape[-2]
-    _check("r", r, (*lead, 3, 3), device)
-    _check("t", t, (*lead, 3), device)
-    _check("p1", p1, (*lead, n, 3), device)
-    _check("p2", p2, (*lead, n, 3), device)
-    _check("w", w, (*lead, n), device)
+    lead = K4.lead(r, t, p1, p2, w)
+    device, n = r.device, p1.shape[-2]
+    K4.check("r", r, torch.float32, (*lead, 3, 3), device)
+    K4.check("t", t, torch.float32, (*lead, 3), device)
+    K4.check("p1", p1, torch.float32, (*lead, n, 3), device)
+    K4.check("p2", p2, torch.float32, (*lead, n, 3), device)
+    K4.check("w", w, torch.float32, (*lead, n), device)
     out = torch.empty((*lead, 6, 6), dtype=torch.float32, device=device)
-    n_seq = lead[0] if lead else 1
-    if n_seq == 0:
-        return out
-    lib = _lib()
-    count = vo_covariance.pointer(device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.vo_covariance_launch(
-            r.data_ptr(), t.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-            w.data_ptr(), n_seq, n, SIGMA_RANGE**2, SIGMA_ANG, DAMPING,
-            out.data_ptr(), stream, count)
-    if rc != 0:
-        raise RuntimeError(f"vo_covariance kernel launch failed: cudaError "
-                           f"{rc} (S={n_seq}, N={n})")
+    K4.launch(vo_covariance, lead, (r, t, p1, p2, w), (out,), dict(N=n),
+              (SIGMA_RANGE**2, SIGMA_ANG, DAMPING))
     return out
 
 
-def _run(r, t, p1, p2, w):
-    """What the custom op computes: K4 on the card, one launch for one
-    problem or for a leading sequence axis; on the CPU the closed form,
-    per sequence for a sequence axis. A second leading axis (nested vmap)
-    raises."""
-    if p1.dim() > 3:
-        raise RuntimeError(
-            f"vo_covariance: nested vmap is not supported; the kernel takes "
-            f"one sequence axis (p1 {tuple(p1.shape)})")
-    if p1.device.type != "cpu":
-        return _launch(r, t, p1, p2, w)
-    if p1.dim() == 2:
-        return vo_covariance_closed_form(r, t, p1, p2, w)
-    return torch.stack([vo_covariance_closed_form(*xs)
-                        for xs in zip(r, t, p1, p2, w)])
-
-
-@torch.library.custom_op(
-    "pre3_tpu_torch::vo_covariance", mutates_args=(),
-    schema="(Tensor r, Tensor t, Tensor p1, Tensor p2, Tensor w) -> Tensor")
-def _cov_op(r, t, p1, p2, w):
-    return _run(r, t, p1, p2, w)
-
-
-@_cov_op.register_fake
 def _fake(r, t, p1, p2, w):
     return p1.new_empty((*p1.shape[:-2], 6, 6))
 
 
-@_cov_op.register_vmap
-def _cov_vmap(info, in_dims, r, t, p1, p2, w):
-    return _cov_op(*to_front(info.batch_size, in_dims, (r, t, p1, p2, w))), 0
+K4.define("pre3_tpu_torch::vo_covariance",
+          "(Tensor r, Tensor t, Tensor p1, Tensor p2, Tensor w) -> Tensor",
+          _launch, vo_covariance_closed_form, _fake)
 
 
 @Counted
@@ -213,8 +146,6 @@ def vo_covariance(
 
     ``vo_covariance.launches`` counts the kernel's runs, added on the
     device by the kernel itself (``utils/launch_count``)."""
-    if p1.device.type == "cpu":
+    if K4.on_cpu(p1):
         return vo_covariance_torch(r, t, p1, p2, w)
-    if p1.device.type != "cuda":
-        raise ValueError(f"vo_covariance: no kernel for device {p1.device}")
-    return _cov_op(r, t, p1, p2, w)
+    return K4.op(r, t, p1, p2, w)

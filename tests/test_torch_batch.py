@@ -1,7 +1,7 @@
 """The multi-sequence path, port vs JAX reference: ``run_slam_batched``
 (one ``torch.func.vmap(slam_step)`` per step over S sequences) against
 the reference's ``jax.vmap(run_slam)``, as tools/measure_batch.py runs
-it, and against S single ``run_slam`` calls; the kernels' custom ops
+it, and against S single ``run_slam`` calls; the kernels' wrappers
 under vmap; the frontend over S·F frames; the ``measure_batch`` tool.
 
 The reference is compiled once, in a module fixture (FAST features, so
@@ -92,12 +92,19 @@ def _seq_draws(draws, s):
         boot_add=draws.boot_add[s])
 
 
-def test_run_slam_batched_matches_jax_vmap(seqs, jax_run, draws):
+@pytest.fixture(scope="module")
+def batched(seqs, draws):
+    """The port's run_slam_batched over the S sequences with each key's
+    draws, read by (a) and (b)."""
+    return tslam.run_slam_batched(
+        tcamera(), to_torch(seqs, device="cpu"), tslam.SlamConfig(**CFG),
+        n_landmarks=K, draws=draws)
+
+
+def test_run_slam_batched_matches_jax_vmap(jax_run, batched):
     """(a) S = 3 sequences, K = 32, each key's draws: stats and the
     measured/visible/init_frame records equal, poses within POSE_ATOL."""
-    got = to_numpy(tslam.run_slam_batched(
-        tcamera(), to_torch(seqs, device="cpu"), tslam.SlamConfig(**CFG),
-        n_landmarks=K, draws=draws))
+    got = to_numpy(batched)
     ref = jax_run
     for name in ref.stats._fields:
         np.testing.assert_array_equal(getattr(got.stats, name),
@@ -113,7 +120,7 @@ def test_run_slam_batched_matches_jax_vmap(seqs, jax_run, draws):
 
 
 @pytest.mark.parametrize("source", ["draws", "generators"])
-def test_run_slam_batched_matches_single_runs(seqs, draws, source):
+def test_run_slam_batched_matches_single_runs(seqs, draws, batched, source):
     """(b) run_slam_batched against S single run_slam calls, with the
     same injected draws, then with the same per-sequence generators
     (draw_step draws outside the vmap in run_slam's order): stats and
@@ -125,7 +132,6 @@ def test_run_slam_batched_matches_single_runs(seqs, draws, source):
         return [torch.Generator().manual_seed(7 + s) for s in range(S)]
 
     if source == "draws":
-        batched = tslam.run_slam_batched(cam, feats, cfg, K, draws=draws)
         singles = [tslam.run_slam(cam, Features(*(x[s] for x in feats)), cfg,
                                   K, draws=_seq_draws(draws, s))
                    for s in range(S)]
@@ -166,9 +172,11 @@ def _vmap_nofallback(fn, in_dims, *args):
 @pytest.mark.parametrize("shared", [(), ("threshold",), ("p1", "p2", "valid"),
                                     ("r", "t")])
 def test_k1_vmap_rule(shared):
-    """(c) K1's custom op under vmap, with the named arguments shared
+    """(c) K1's wrapper under vmap, with the named arguments shared
     (unbatched) and the rest batched on axis 0 or 1: bitwise the plain
-    version per sequence."""
+    version per sequence. On CPU tensors the wrapper is the plain version,
+    batched by vmap as run_slam_batched runs it (the custom op under vmap:
+    tests/test_torch_kernel_op.py)."""
     rng = np.random.default_rng(0)
     n_seq, b, n = 3, 64, 40
     full = dict(
@@ -201,9 +209,10 @@ def test_k1_vmap_rule(shared):
 @pytest.mark.parametrize("case", ["all-batched", "shared-d2", "no-valid2",
                                   "batched-on-axis-1"])
 def test_k2_vmap_rule(case):
-    """(c) K2's custom op under vmap (d2 shared, valid2 absent, a
+    """(c) K2's wrapper under vmap (d2 shared, valid2 absent, a
     batch axis not in front): bitwise the plain matcher per sequence,
-    ratio test and valid1 applied after it as on a single call."""
+    ratio test and valid1 applied after it as on a single call. On CPU
+    tensors the wrapper is the plain matcher, batched by vmap."""
     rng = np.random.default_rng(1)
     n_seq, n1, n2, d = 3, 20, 30, 16
     d1 = torch.as_tensor(rng.normal(size=(n_seq, n1, d)), dtype=torch.float32)
@@ -228,28 +237,6 @@ def test_k2_vmap_rule(case):
         ref = matching.match_descriptors(*one, ratio=1.3)
         for name, g, r in zip(ref._fields, got, ref):
             assert torch.equal(g[s], r), (s, name)
-
-
-def test_kernel_ops_refuse_nested_vmap_and_batched_launch():
-    """(c) A second vmap level raises, and so does a vmapped tensor that
-    reaches a kernel launch without the op's rule: nothing falls back to
-    a loop over the sequences."""
-    d1, d2 = torch.randn(2, 3, 5, 8), torch.randn(2, 3, 6, 8)
-    inner = torch.func.vmap(lambda a, b: matching.match_descriptors_k2(a, b))
-    with pytest.raises(RuntimeError, match="nested vmap"):
-        torch.func.vmap(inner)(d1, d2)
-    r, t = torch.randn(2, 3, 4, 3, 3), torch.randn(2, 3, 4, 3)
-    p = torch.randn(2, 3, 5, 3)
-    valid, thr = torch.ones(2, 3, 5, dtype=torch.bool), torch.ones(2, 3)
-    with pytest.raises(RuntimeError, match="nested vmap"):
-        torch.func.vmap(torch.func.vmap(ransac_score.score_hypotheses))(
-            r, t, p, p, valid, thr)
-    with pytest.raises(RuntimeError, match="vmapped tensor reached"):
-        torch.func.vmap(lambda a, b: matching._launch_k2(a, b, None))(
-            d1[0], d2[0])
-    with pytest.raises(RuntimeError, match="vmapped tensor reached"):
-        torch.func.vmap(ransac_score._launch)(r[0], t[0], p[0], p[0],
-                                              valid[0], thr[0])
 
 
 def test_frontend_over_sequences():

@@ -194,41 +194,25 @@ def _init_inputs(rng, lead, a):
     return [torch.as_tensor(x, dtype=torch.float32) for x in (uv, cam13, rho)]
 
 
-@pytest.mark.parametrize("form,a", [("plain", 8), ("plain", 32),
-                                    ("vmap", 8)])
+@pytest.mark.parametrize("form,a", [("plain", 8), ("plain", 32)])
 def test_inverse_depth_init_matches_four_passes(form, a):
     """ops/inverse_depth_init.py on the CPU: the plain version and the
     wrapper equal the four passes add_features ran before, bit for bit,
-    at the step's A = 8 and the bootstrap's A = 32; under torch.func.vmap
-    the custom op (the card's route) equals a loop of the plain version
-    over the sequences, bit for bit, with the camera batched and shared."""
+    at the step's A = 8 and the bootstrap's A = 32 (the custom op under
+    vmap: tests/test_torch_kernel_op.py)."""
     from pre3_tpu_torch.ops.inverse_depth_init import (
-        _init_op, inverse_depth_init, inverse_depth_init_torch,
+        inverse_depth_init, inverse_depth_init_torch,
     )
 
     rng = np.random.default_rng(a)
-    if form == "plain":
-        uv, cam13, rho = _init_inputs(rng, (), a)
-        ref = _four_passes(TCAM, uv, cam13, rho)
-        for got in (inverse_depth_init_torch(TCAM, uv, cam13, rho),
-                    inverse_depth_init(TCAM, uv, cam13, rho)):
-            assert [g.shape for g in got] == [(a, 6), (a, 6, 13), (a, 6, 2),
-                                              (a, 6)]
-            for g, r in zip(got, ref):
-                assert torch.equal(g, r)
-        return
-    s = 3
-    uv, cam13, rho = _init_inputs(rng, (s,), a)
-    got = torch.func.vmap(lambda u, c, r: _init_op(u, c, r, *TCAM))(
-        uv, cam13, rho)
-    shared = torch.func.vmap(lambda u, r: _init_op(u, cam13[1], r, *TCAM))(
-        uv, rho)
-    for i in range(s):
-        for g, sh, r, r_sh in zip(
-                got, shared, inverse_depth_init_torch(TCAM, uv[i], cam13[i],
-                                                      rho[i]),
-                inverse_depth_init_torch(TCAM, uv[i], cam13[1], rho[i])):
-            assert torch.equal(g[i], r) and torch.equal(sh[i], r_sh)
+    uv, cam13, rho = _init_inputs(rng, (), a)
+    ref = _four_passes(TCAM, uv, cam13, rho)
+    for got in (inverse_depth_init_torch(TCAM, uv, cam13, rho),
+                inverse_depth_init(TCAM, uv, cam13, rho)):
+        assert [g.shape for g in got] == [(a, 6), (a, 6, 13), (a, 6, 2),
+                                          (a, 6)]
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
 
 
 # ---------------------------------------------------------------------------

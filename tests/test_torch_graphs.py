@@ -38,6 +38,7 @@ from pre3_tpu_torch.vo.dead_reckoning import Trajectory, run_sequence, vo_pair
 from pre3_tpu_torch.vo.ransac import ransac_rigid
 from test_torch_ekf import _tilted_floor_xyz
 from test_torch_slam import N_REGION, PLANE_BATCH, POSE_ATOL, _run_draws
+from torch_reference import reference
 
 N_FRAMES, K, KF = 6, 32, 64
 CFG = dict(match_ratio=1.3, min_measured=50, max_update_slots=24)
@@ -459,9 +460,9 @@ def test_program_run_slam_matches_jax():
                              max_features=KF)
     cfg = tslam.SlamConfig(**CFG)
     key = jax.random.PRNGKey(13)
-    ref = jax.tree.map(np.asarray, jslam.run_slam(
-        jcamera(), JFeatures(*map(jnp.asarray, to_numpy(feats))), key,
-        cfg=jslam.SlamConfig(**CFG), n_landmarks=K))
+    ref = reference(jslam.run_slam, jcamera(),
+                    JFeatures(*map(jnp.asarray, to_numpy(feats))), key,
+                    cfg=jslam.SlamConfig(**CFG), n_landmarks=K)
     draws = _run_draws(key, cfg, N_FRAMES, with_plane=False)
     got = to_numpy(tslam.run_slam(tcamera(), feats, cfg, n_landmarks=K,
                                   draws=draws))

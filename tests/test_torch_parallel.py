@@ -42,6 +42,7 @@ from tests import test_distributed
 from tests.test_ba import CAM as JCAM
 from tests.test_ba import make_ba_problem
 from tests.test_vo import make_rigid_problem
+from torch_reference import reference
 
 CAM = sr4000_camera()
 RANSAC_BATCH = 512
@@ -284,20 +285,18 @@ def test_hybrid_mesh_two_by_two(world4):
 
 # ---- hypothesis-sharded RANSAC -------------------------------------------
 
-_JAX: dict = {}
+def _sharded_ransac(n):
+    """The reference's hypothesis-sharded RANSAC on a mesh of n."""
+    p1, p2 = _rigid()
+    m = jmake_mesh(n, axis="hyp")
+    with jax.set_mesh(m):
+        return jax.jit(lambda k: jsharded(
+            m, k, jnp.asarray(p1), jnp.asarray(p2), jnp.ones(96, bool),
+            batch=RANSAC_BATCH, support_threshold=1e-3))(jax.random.PRNGKey(0))
 
 
 def _jax_ransac(n):
-    if ("ransac", n) not in _JAX:
-        p1, p2 = _rigid()
-        m = jmake_mesh(n, axis="hyp")
-        with jax.set_mesh(m):
-            res = jax.jit(lambda k: jsharded(
-                m, k, jnp.asarray(p1), jnp.asarray(p2), jnp.ones(96, bool),
-                batch=RANSAC_BATCH,
-                support_threshold=1e-3))(jax.random.PRNGKey(0))
-        _JAX["ransac", n] = jax.tree.map(np.asarray, res)
-    return _JAX["ransac", n]
+    return reference(_sharded_ransac, n)
 
 
 def test_sharded_ransac_matches_jax(world):
@@ -350,11 +349,8 @@ def test_sharded_ransac_tie_picks_lowest_index(world):
 # ---- landmark-sharded BA ---------------------------------------------------
 
 def _jax_ba(n, name):
-    if (name, n) not in _JAX:
-        res = jba_sharded(jmake_mesh(n, axis="lm"), JCAM, _problems()[name],
-                          iters=8)
-        _JAX[name, n] = jax.tree.map(np.asarray, res)
-    return _JAX[name, n]
+    return reference(jba_sharded, jmake_mesh(n, axis="lm"), JCAM,
+                     _problems()[name], iters=8)
 
 
 @pytest.mark.parametrize("name", ["ba", "ba_odo"])
@@ -381,8 +377,7 @@ def test_ba_sharded_matches_single_device(world, name):
     n, results = world
     got = out(results, name)
     assert got["points"].shape[0] == _problems()[name].points.shape[0]
-    ref = jax.tree.map(np.asarray, jbundle_adjust(JCAM, _problems()[name],
-                                                  iters=8))
+    ref = reference(jbundle_adjust, JCAM, _problems()[name], iters=8)
     if name == "ba_pad":
         check_states(got, ref)
     else:

@@ -14,7 +14,6 @@ optimizer with the reference test's bounds.
 
 import functools
 
-import jax
 import numpy as np
 import pytest
 
@@ -34,6 +33,7 @@ from test_torch_parallel import (
     BA_ATOL, CAM, check_ranks_agree, check_states, corridor, out,
     per_iteration, port, spawn, with_lcp,
 )
+from torch_reference import reference
 
 # The reference test's bounds against the single-device optimizer (CG
 # at a fixed trip count): 2e-3 on a window-local corridor, 3e-3 where
@@ -155,7 +155,9 @@ def test_uneven_f_with_empty_blocks(world4):
     assert int(got["fb"]) == 2
 
 
-_JAX: dict = {}
+def _jax_pose_sharded(n, prob, opts):
+    """The reference's pose-sharded BA on a mesh of n: (state, report)."""
+    return jpose_sharded(jmake_mesh(n, axis="blk"), JCAM, prob, **opts)
 
 
 def test_global_landmarks_match_jax(world):
@@ -165,11 +167,7 @@ def test_global_landmarks_match_jax(world):
     BA at the same mesh size; and bundle_adjust's bounds."""
     n, results = world
     prob, gt, opts = _problems(n)["global"]
-    if n not in _JAX:
-        res, rep = jpose_sharded(jmake_mesh(n, axis="blk"), JCAM, prob,
-                                 **opts)
-        _JAX[n] = jax.tree.map(np.asarray, res), rep
-    ref, report = _JAX[n]
+    ref, report = reference(_jax_pose_sharded, n, prob, opts)
     got = out(results, "global")
     for k, v in report.items():
         assert int(got[k]) == v, k
@@ -187,7 +185,7 @@ def test_lcp_pose_factors_all_three_paths(world):
     equal, kf_t within the reference test's bound."""
     n, results = world
     prob, _, _ = _problems(n)["lcp"]
-    ref = jax.tree.map(np.asarray, jbundle_adjust(JCAM, prob, iters=8))
+    ref = reference(jbundle_adjust, JCAM, prob, iters=8)
     single = _single(n, "lcp")
     got = out(results, "lcp")
     np.testing.assert_allclose(single.kf_t, ref.kf_t, atol=BA_ATOL)

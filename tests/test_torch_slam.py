@@ -6,8 +6,9 @@ orientation prior, the same with the warped-patch NCC matcher (config
 periodic attitude update, each with the reference's random draws
 reproduced from its keys and injected into the port.
 
-The reference's run_slam is one jitted program; it is compiled once, in
-a module fixture, and every test of the sequence reuses its result.
+The reference's run_slam is one jitted program; each run is made once
+per process (tests/torch_reference.py), and every test of the sequence
+reuses the module fixture's.
 """
 
 import functools
@@ -29,6 +30,7 @@ from pre3_tpu_torch.eval.trajectory import ate_rmse
 from pre3_tpu_torch.geometry.camera import sr4000_camera as tcamera
 from pre3_tpu_torch.utils.interop import to_numpy, to_torch
 from test_torch_ekf import _tilted_floor_xyz
+from torch_reference import reference
 
 N_FRAMES, KF, K = 10, 64, 32
 PLANE_BATCH = 512
@@ -96,10 +98,10 @@ def seq():
 def jax_run(seq):
     """The reference's run_slam, compiled once."""
     feats, _, xyz_imgs, _ = seq
-    out = jslam.run_slam(jcamera(), jax.tree.map(jnp.asarray, feats),
-                         jax.random.PRNGKey(2), cfg=jslam.SlamConfig(**CFG),
-                         n_landmarks=K, xyz_imgs=jnp.asarray(xyz_imgs))
-    return jax.tree.map(np.asarray, out)
+    return reference(jslam.run_slam, jcamera(),
+                     jax.tree.map(jnp.asarray, feats), jax.random.PRNGKey(2),
+                     cfg=jslam.SlamConfig(**CFG), n_landmarks=K,
+                     xyz_imgs=jnp.asarray(xyz_imgs))
 
 
 def test_run_slam_matches_jax(seq, jax_run):
@@ -240,10 +242,11 @@ def test_unported_options_raise(seq, option):
     to the reference's jitted jnp.linspace)."""
     feats, gt, xyz_imgs, intensity = seq
     cfg = tslam.SlamConfig(**CFG, **option)
-    ref = jax.tree.map(np.asarray, jslam.run_slam(
-        jcamera(), jax.tree.map(jnp.asarray, feats), jax.random.PRNGKey(6),
-        cfg=jslam.SlamConfig(**CFG, **option), n_landmarks=K,
-        images=jnp.asarray(intensity), xyz_imgs=jnp.asarray(xyz_imgs)))
+    ref = reference(
+        jslam.run_slam, jcamera(), jax.tree.map(jnp.asarray, feats),
+        jax.random.PRNGKey(6), cfg=jslam.SlamConfig(**CFG, **option),
+        n_landmarks=K, images=jnp.asarray(intensity),
+        xyz_imgs=jnp.asarray(xyz_imgs))
     draws = _run_draws(jax.random.PRNGKey(6), cfg, N_FRAMES, with_plane=True)
     got = to_numpy(tslam.run_slam(
         tcamera(), to_torch(feats, device="cpu"), cfg, n_landmarks=K,
@@ -294,10 +297,10 @@ def test_run_slam_sift_heading_matches_jax(sift_seq):
     feats, gt, xyz_imgs = sift_seq
     assert feats.desc.shape == (SIFT_FRAMES, SIFT_KF, 128)
     cfg = tslam.SlamConfig(**SIFT_CFG)
-    ref = jax.tree.map(np.asarray, jslam.run_slam(
-        jcamera(), jax.tree.map(jnp.asarray, feats), jax.random.PRNGKey(4),
-        cfg=jslam.SlamConfig(**SIFT_CFG), n_landmarks=K,
-        xyz_imgs=jnp.asarray(xyz_imgs)))
+    ref = reference(
+        jslam.run_slam, jcamera(), jax.tree.map(jnp.asarray, feats),
+        jax.random.PRNGKey(4), cfg=jslam.SlamConfig(**SIFT_CFG),
+        n_landmarks=K, xyz_imgs=jnp.asarray(xyz_imgs))
     draws = _run_draws(jax.random.PRNGKey(4), cfg, SIFT_FRAMES,
                        with_plane=True, kf=SIFT_KF)
     assert draws.steps.heading.shape[0] == 2  # steps 2 and 4

@@ -23,7 +23,7 @@ import torch
 
 from pre3_tpu_torch.data.synthetic import _rodrigues
 from pre3_tpu_torch.ops.vo_covariance import (
-    _cov_op, _launch, vo_covariance, vo_covariance_closed_form,
+    vo_covariance, vo_covariance_closed_form,
 )
 from pre3_tpu_torch.vo.covariance import vo_covariance_torch
 
@@ -97,30 +97,3 @@ def test_cpu_wrapper_is_the_torch_func_path():
     vo_covariance.launches = 0
     assert torch.equal(vo_covariance(*args), vo_covariance_torch(*args))
     assert vo_covariance.launches == 0
-
-
-def test_vmap_rule_matches_a_loop():
-    """Under torch.func.vmap the custom op (the card's route: one launch
-    for S sequences) equals a loop of the closed form over 3 sequences,
-    bit for bit, with the fit batched and with it shared."""
-    s = 3
-    problems = [fit_problem(288, 10 + i) for i in range(s)]
-    r, t, p1, p2, w = (torch.as_tensor(np.stack(x), dtype=torch.float32)
-                       for x in zip(*problems))
-    got = torch.func.vmap(_cov_op)(r, t, p1, p2, w)
-    shared = torch.func.vmap(lambda a, b, c: _cov_op(r[1], t[1], a, b, c))(
-        p1, p2, w)
-    assert got.shape == (s, 6, 6)
-    for i in range(s):
-        assert torch.equal(got[i], vo_covariance_closed_form(
-            r[i], t[i], p1[i], p2[i], w[i]))
-        assert torch.equal(shared[i], vo_covariance_closed_form(
-            r[1], t[1], p1[i], p2[i], w[i]))
-
-
-def test_kernel_launch_refuses_cpu_tensors():
-    """K4's launch takes CUDA tensors only: nothing falls back."""
-    args = [torch.as_tensor(x, dtype=torch.float32)
-            for x in fit_problem(8, 6)]
-    with pytest.raises(ValueError, match="no kernel for device cpu"):
-        _launch(*args)
